@@ -1,0 +1,33 @@
+"""Flow base class: the invertible-map contract.
+
+Port of ``tfep_tpu/nn/flows/flow.py``. Every flow implements
+
+    ``forward(x) -> (y, log_det_J)`` and ``inverse(y) -> (x, log_det_J)``
+
+with ``x``/``y`` of shape ``(batch, n_features)`` and ``log_det_J`` of
+shape ``(batch,)``.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+__all__ = ['Flow']
+
+
+class Flow(nn.Module):
+    """Abstract base class for invertible maps.
+
+    Subclasses implement :meth:`forward` and :meth:`inverse`, both mapping
+    a ``(batch, n_features)`` tensor to ``(output, log_det_J)`` with
+    ``forward_log_det_J(x) + inverse_log_det_J(forward(x)) == 0``. Calling
+    the module runs :meth:`forward`, the training direction.
+    """
+
+    def forward(self, x):
+        """Map ``x`` to ``(y, log_det_J)``."""
+        raise NotImplementedError
+
+    def inverse(self, y):
+        """Exact inverse of :meth:`forward`; returns ``(x, log_det_J)``."""
+        raise NotImplementedError
