@@ -22,6 +22,22 @@ Phases, each of which passes or exits non-zero:
 4. Times on the card: each kernel and its plain version, the training
    step, the map evaluation, peak memory, and a ``torch.profiler``
    breakdown of the training step by kind of kernel, with its table.
+5. EGNN kernels: ``nvcc`` builds the CUDA kernels K3 (forward), K4
+   (forward and tangent) and K5 (backward of K4) from this checkout while
+   phases 2-4 run; each is held against its plain PyTorch version in
+   float32 at the bench shape of ``benchmarks/cnf_bench.py`` (B=256, n=32,
+   F=D=64) and at a ragged shape with pairs beyond the cutoff.
+6. CNF slice: ``benchmarks/cnf_bench.py``'s configuration with
+   ``pairwise='fused'`` (32 atoms, EGNN dynamics of 4 layers at width 64,
+   rk4 with 8 steps, one Hutchinson probe, regularization, checkpointed
+   steps, batch 256, AdamW), random weights from a seed. The map and the
+   loss gradients against the float64 dense path on the same weights and
+   probe; then the counted path (counts of K3/K4/K5 set to 0 just before,
+   read just after): one no-grad map evaluation, the training steps, one
+   plain evaluation of the field; then a forward/inverse round trip.
+7. CNF times: each EGNN kernel and its plain version, the training step
+   (beside the dense path's on the same map), the map evaluation, peak
+   memory, and the profiler's breakdown of the step.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -416,13 +432,21 @@ def timing_phase(device, flow, frames, train_step, smi):
                       eval_ms=eval_ms, peak_bytes=peak)
 
 
-def profile_phase(train_step, step_ms, smi):
+def _timed_build(build):
+    """``(path, seconds)`` of ``build()``, or the exception it raised."""
+    t0 = time.perf_counter()
+    try:
+        return build(), time.perf_counter() - t0
+    except BaseException as error:  # re-raised in the main thread
+        return error
+
+
+def profile_phase(train_step, step_ms, smi, n=5, batch=B):
     """Device time of the training step by kernel, from torch.profiler:
     the busy share of the step and the time by kind of kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n = 5
-    for _ in range(3):
+    for _ in range(min(n, 3)):
         train_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -437,6 +461,8 @@ def profile_phase(train_step, step_ms, smi):
         name = event.name.lower()
         if name in ('forward_kernel', 'backward_kernel'):
             kind = 'spline kernels (K1, K2)'
+        elif 'egnn_kernel' in name or 'reduce_partials' in name:
+            kind = 'EGNN kernels (K3, K4, K5)'
         elif any(s in name for s in ('gemm', 'xmma', 'cutlass', 'sm90_')):
             kind = 'matrix products (cuBLAS)'
         elif 'multi_tensor' in name or 'adam' in name:
@@ -448,7 +474,7 @@ def profile_phase(train_step, step_ms, smi):
         count, us = kinds.get(kind, (0, 0.0))
         kinds[kind] = (count + 1, us + event.time_range.elapsed_us())
     busy_ms = sum(us for _, us in kinds.values()) / n / 1e3
-    lines = [smi, f'training step, batch {B}, {n} steps profiled; '
+    lines = [smi, f'training step, batch {batch}, {n} steps profiled; '
              f'unprofiled step {step_ms:.3f} ms']
     if busy_ms == 0.0:
         lines.append('torch.profiler recorded no device time')
@@ -464,12 +490,368 @@ def profile_phase(train_step, step_ms, smi):
                                   row_limit=30, max_name_column_width=70))
 
 
+# ---------------------------------------------------------------------------
+# The CNF slice: EGNN kernels K3/K4/K5 and the training step of
+# benchmarks/cnf_bench.py (--pairwise pallas).
+# ---------------------------------------------------------------------------
+
+N_ATOMS, CNF_BATCH, CNF_FEAT, CNF_LAYERS, ODE_STEPS = 32, 256, 64, 4, 8
+R_CUTOFF = 6.0
+CNF_STEPS = 3
+# Each evaluation of the field runs the pairwise block once per layer, and
+# rk4 evaluates it 4 times per step.
+BLOCKS_PER_PASS = 4 * ODE_STEPS * CNF_LAYERS
+# EGNN kernels against their plain version, float32, relative to
+# max(1, max|plain|): the products sum 64 terms in another order than
+# cuBLAS (forward and tangent); the weight gradients also sum over all
+# 262,144 pairs, per frame and then over frames, in another order than
+# autograd, through a second-order chain.
+EGNN_FORWARD_TOL = 1e-4
+EGNN_BACKWARD_TOL = 1e-3
+# The CNF slice on the card: the float32 kernel path against the float64
+# dense path on the same weights and probe, through 32 evaluations of a
+# 4-layer field (float32 rounding carried through the integration).
+CNF_MAP_TOL = 1e-4
+CNF_GRAD_TOL = 1e-3
+# Round trip: forward and inverse each integrate on the fixed rk4 grid of
+# 8 steps, so inverse(forward(x)) differs from x by the discretization
+# error (ContinuousFlow.inverse); the Hutchinson log-dets cancel only to
+# that error.
+CNF_ROUND_TRIP_TOL = 1e-2
+
+
+def egnn_inputs(B, n, F, D, device, seed, spread=0.5):
+    """K3/K4/K5 arguments at the scale of an initialized layer, float32:
+    the 14 primals, the 3 tangents and the 4 cotangents. ``spread`` is
+    the positions' scale (0.5 as the bench's frames: every pair inside
+    the cutoff; 4 puts many beyond it)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, fan_in=1):
+        return torch.randn(*shape, generator=g,
+                           dtype=torch.float64) / fan_in ** 0.5
+
+    pos = spread * r(B, n, 3)
+    diff = pos[:, :, None] - pos[:, None]
+    eye = torch.eye(n, dtype=torch.bool)
+    dist = torch.sqrt(torch.where(eye, 1.0, (diff ** 2).sum(-1)) + 1e-20)
+    weights = [torch.linspace(0, R_CUTOFF, D, dtype=torch.float64),
+               0.1 * r(D) + float(np.log(((D - 1) / (3 * R_CUTOFF)) ** 2)),
+               r(F, D, fan_in=D), r(F, fan_in=F), r(F, F, fan_in=F),
+               r(F, fan_in=F), r(F, fan_in=F), r(1, fan_in=F),
+               r(F, F, fan_in=F), r(F, fan_in=F), r(F, fan_in=F)]
+    groups = ([r(B, n, F), r(B, n, F), dist] + weights,
+              [r(B, n, F), r(B, n, F), r(B, n, n)],
+              [r(B, n, F), r(B, n, n), r(B, n, F), r(B, n, n)])
+    return [[t.to(dtype=torch.float32, device=device) for t in group]
+            for group in groups]
+
+
+def egnn_kernel_phase(device):
+    """K3, K4 and K5 against their plain version; returns the largest
+    error of each at the bench shape."""
+    from tfep_tpu_torch.ops import egnn as E
+    names = ('a_i', 'a_j', 'dist') + E.WEIGHTS + ('da_i', 'da_j', 'dd')
+    errors = {}
+    say(f'  tolerances: forward and tangent {EGNN_FORWARD_TOL:g}, '
+        f'gradients {EGNN_BACKWARD_TOL:g}, relative to max(1, max|plain|) '
+        '(float32 sums of 64 products in another order; the weight '
+        'gradients sum over every pair of the batch)')
+    for shape, spread in (((CNF_BATCH, N_ATOMS, CNF_FEAT, CNF_FEAT), 0.5),
+                          ((7, 13, CNF_FEAT, CNF_FEAT), 4.0)):
+        primals, tangents, cots = egnn_inputs(*shape, device, 5, spread)
+        with torch.no_grad():
+            k3 = E.egnn_pairwise(*primals, R_CUTOFF)
+            p3 = E.pairwise_reference(*primals, R_CUTOFF)
+        results = {}
+        for name, fn in (('kernel', E.egnn_pairwise_jvp),
+                         ('plain', E.pairwise_jvp_reference)):
+            args = [t.clone().requires_grad_() for t in primals + tangents]
+            outs = fn(*args, R_CUTOFF)
+            grads = torch.autograd.grad(outs, args, cots)
+            results[name] = ([o.detach() for o in outs], grads)
+        torch.cuda.synchronize()
+        checks = [('K3', f'K3 {n_}', a, b, EGNN_FORWARD_TOL)
+                  for n_, a, b in zip(('nm', 'mag'), k3, p3)]
+        checks += [('K4', f'K4 {n_}', a, b, EGNN_FORWARD_TOL) for n_, a, b in
+                   zip(('nm', 'mag', 'dnm', 'dmag'), results['kernel'][0],
+                       results['plain'][0])]
+        checks += [('K5', f'K5 grad {n_}', a, b, EGNN_BACKWARD_TOL)
+                   for n_, a, b in zip(names, results['kernel'][1],
+                                       results['plain'][1])]
+        worst = {}
+        for kernel, label, kern, plain, tol in checks:
+            if not torch.isfinite(kern).all():
+                raise AssertionError(f'{shape}: {label} not finite')
+            err, rel = rel_err(kern, plain)
+            if not rel <= tol:
+                raise AssertionError(f'{shape}: {label} disagrees: '
+                                     f'{err:.3e} ({rel:.3e} relative)')
+            if rel >= worst.get(kernel, (0.0, 0.0, ''))[1]:
+                worst[kernel] = (err, rel, label)
+            if shape[0] == CNF_BATCH:
+                errors[kernel] = max(errors.get(kernel, 0.0), err)
+        for kernel, (err, rel, label) in worst.items():
+            say(f'  B,n,F,D={shape}: {kernel} worst {label}: '
+                f'max|kernel-plain| = {err:.3e} (relative {rel:.3e})')
+    return errors
+
+
+def build_cnf(device, dtype=torch.float32):
+    """cnf_bench's configuration with the port's entry points, weights
+    and frames from the seed; pairwise='fused'."""
+    from tfep_tpu_torch.nn.dynamics import EGNNDynamics
+    from tfep_tpu_torch.nn.flows import ContinuousFlow
+    generator = torch.Generator().manual_seed(SEED)
+    dynamics = EGNNDynamics.create(
+        generator, node_types=np.arange(N_ATOMS) % 4, r_cutoff=R_CUTOFF,
+        time_feat_dim=16, node_feat_dim=CNF_FEAT,
+        distance_feat_dim=CNF_FEAT, n_layers=CNF_LAYERS,
+        initialize_identity=False, device=device, dtype=dtype,
+        pairwise='fused')
+    flow = ContinuousFlow.create(
+        dynamics, trace_estimator='hutchinson', solver='rk4',
+        n_steps=ODE_STEPS, regularization=True, checkpoint=True,
+        device=device)
+    frames = 0.5 * torch.randn(CNF_BATCH, 3 * N_ATOMS, generator=generator)
+    return flow, frames.to(device=device, dtype=dtype)
+
+
+def dense_copy(flow):
+    """The same map in float64 through the dense pairwise formulation."""
+    reference = copy.deepcopy(flow).double()
+    for layer in reference.dynamics.graph_layers:
+        layer.pairwise = 'dense'
+    return reference
+
+
+def cnf_loss(y, ldj, reg):
+    return (torch.mean(0.5 * torch.sum(y * y, dim=-1) - ldj)
+            + 0.01 * torch.mean(reg))
+
+
+def cnf_phase(flow, frames):
+    from tfep_tpu_torch.ops.egnn import LAUNCHES
+    n_params = sum(p.numel() for p in flow.parameters())
+    say(f'  flow: ContinuousFlow(EGNNDynamics), {N_ATOMS} atoms, '
+        f'{CNF_LAYERS} layers, feat {CNF_FEAT}, rk4 x {ODE_STEPS}, batch '
+        f'{CNF_BATCH}, pairwise=fused, {n_params} parameters')
+    eps = flow.probes(frames)
+    reference = dense_copy(flow)
+
+    # The map and the loss gradients against the float64 dense path.
+    with torch.no_grad():
+        outs_k = flow.integrate(frames, eps)
+        outs_p = reference.integrate(frames.double(), eps.double())
+    for label, kern, plain in zip(('y', 'log_det_J', 'reg'), outs_k,
+                                  outs_p):
+        err, rel = rel_err(kern.double(), plain)
+        say(f'  map {label}: max|fused float32 - dense float64| = {err:.3e} '
+            f'(relative {rel:.3e}, tolerance {CNF_MAP_TOL:g})')
+        if not rel <= CNF_MAP_TOL:
+            raise AssertionError(f'CNF map {label} disagrees')
+    grads = []
+    for net, x, e in ((flow, frames, eps),
+                      (reference, frames.double(), eps.double())):
+        loss = cnf_loss(*net.integrate(x, e))
+        params = [p for p in net.parameters() if p.numel()]
+        grads.append(torch.autograd.grad(loss, params, allow_unused=True))
+    del reference
+    worst = (0.0, 0.0, '')
+    names = [n for n, p in flow.named_parameters() if p.numel()]
+    for name, kern, plain in zip(names, *grads):
+        if kern is None or plain is None:
+            if (kern is None) != (plain is None):
+                raise AssertionError(f'gradient of {name}: one side None')
+            continue
+        err, rel = rel_err(kern.double(), plain)
+        if not (torch.isfinite(kern).all() and rel <= CNF_GRAD_TOL):
+            raise AssertionError(f'gradient of {name} disagrees: {err:.3e} '
+                                 f'({rel:.3e} relative)')
+        worst = max(worst, (rel, err, name))
+    say(f'  loss gradients: worst {worst[2]}: max|fused float32 - dense '
+        f'float64| = {worst[1]:.3e} (relative {worst[0]:.3e}, tolerance '
+        f'{CNF_GRAD_TOL:g})')
+
+    optimizer = torch.optim.AdamW(flow.parameters(), lr=1e-4,
+                                  weight_decay=1e-4, eps=1e-8)
+
+    def train_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = cnf_loss(*flow(frames))
+        loss.backward()
+        optimizer.step()
+        return loss
+
+    # The main path, counted: a map evaluation, the training steps, and a
+    # plain evaluation of the velocity field.
+    def counts():
+        return (LAUNCHES.k3, LAUNCHES.k4, LAUNCHES.k5)
+
+    LAUNCHES.reset()
+    with torch.no_grad():
+        y, ldj, reg = flow(frames)
+    steps = [counts()]
+    losses = []
+    for _ in range(CNF_STEPS):
+        losses.append(float(train_step().detach()))
+        steps.append(counts())
+    with torch.no_grad():
+        velocity = flow.dynamics(0.5, frames)
+    steps.append(counts())
+    launches = dict(zip(('k3', 'k4', 'k5'), counts()))
+
+    if steps[0] != (0, BLOCKS_PER_PASS, 0):
+        raise AssertionError(f'map evaluation launched {steps[0]}')
+    for a, b in zip(steps[:-2], steps[1:-1]):
+        delta = tuple(x1 - x0 for x0, x1 in zip(a, b))
+        if delta != (0, 2 * BLOCKS_PER_PASS, BLOCKS_PER_PASS):
+            raise AssertionError(f'a training step launched {delta}')
+    delta = tuple(x1 - x0 for x0, x1 in zip(steps[-2], steps[-1]))
+    if delta != (CNF_LAYERS, 0, 0):
+        raise AssertionError(f'the plain field launched {delta}')
+    say(f'  map evaluation: y {tuple(y.shape)}, ldj mean '
+        f'{float(ldj.mean()):.6f}, reg mean {float(reg.mean()):.6f}; '
+        f'K3/K4/K5 launches {steps[0]}')
+    say(f'  {CNF_STEPS} training steps, loss {losses}; K3/K4/K5 per step '
+        f'0/{2 * BLOCKS_PER_PASS}/{BLOCKS_PER_PASS} ({BLOCKS_PER_PASS} K4 '
+        f'forward, {BLOCKS_PER_PASS} recomputed under checkpoint)')
+    say(f'  plain field dynamics(t, x): {tuple(velocity.shape)}, '
+        f'{CNF_LAYERS} K3; total {launches}')
+    if not (all(torch.isfinite(t).all() for t in (y, ldj, reg, velocity))
+            and np.all(np.isfinite(losses))):
+        raise AssertionError('non-finite map, field or loss')
+
+    with torch.no_grad():
+        y, ldj, _ = flow.integrate(frames, eps)
+        x_back, ldj_inv, _ = flow.integrate(y, eps, inverse=True)
+    rt_err, rt_rel = rel_err(x_back, frames)
+    ldj_err = float((ldj + ldj_inv).abs().max())
+    ldj_rel = ldj_err / max(1.0, float(ldj.abs().max()))
+    say(f'  round trip: max|inverse(forward(x)) - x| = {rt_err:.3e}, '
+        f'max|ldj + ldj_inverse| = {ldj_err:.3e} (relative {ldj_rel:.3e}; '
+        f'tolerance {CNF_ROUND_TRIP_TOL:g}, rk4 with {ODE_STEPS} steps)')
+    if not (rt_rel <= CNF_ROUND_TRIP_TOL and ldj_rel <= CNF_ROUND_TRIP_TOL):
+        raise AssertionError('CNF round trip disagrees')
+    return launches, train_step
+
+
+def egnn_timing_phase(device, smi):
+    """Each EGNN kernel and its plain version at the bench shape."""
+    from tfep_tpu_torch.ops import egnn as E
+    B, n, F, D = CNF_BATCH, N_ATOMS, CNF_FEAT, CNF_FEAT
+    sets = [egnn_inputs(B, n, F, D, device, 30 + s) for s in range(2)]
+    # (primals, tangents, cotangents) per set.
+
+    def k3(p, t_, c):
+        E.launch_k3(*p, r_cutoff=R_CUTOFF)
+
+    def k4(p, t_, c):
+        E.launch_k4(*p, *t_, r_cutoff=R_CUTOFF)
+
+    def k5(p, t_, c):
+        E.launch_k5(*p, *t_, *c, r_cutoff=R_CUTOFF)
+
+    def plain3(p, t_, c):
+        with torch.no_grad():
+            E.pairwise_reference(*p, R_CUTOFF)
+
+    def plain4(p, t_, c):
+        with torch.no_grad():
+            E.pairwise_jvp_reference(*p, *t_, R_CUTOFF)
+
+    def plain5(p, t_, c):
+        with torch.no_grad():
+            E.pairwise_jvp_backward_reference(*p, *t_, R_CUTOFF, *c)
+
+    rows = []
+    for name, kern, plain, nbytes, nops, reps in (
+            ('egnn_forward', k3, plain3, E.k3_bytes(B, n, F, D, 4),
+             E.k3_ops(B, n, F, D), 8),
+            ('egnn_jvp', k4, plain4, E.k4_bytes(B, n, F, D, 4),
+             E.k4_ops(B, n, F, D), 4),
+            ('egnn_jvp_backward', k5, plain5, E.k5_bytes(B, n, F, D, 4),
+             E.k5_ops(B, n, F, D), 2)):
+        # Kernel and plain version in turns: kernel, plain, plain, kernel.
+        k_runs = [graph_ms(kern, sets, reps, 3)]
+        p_runs = [graph_ms(plain, sets, 2, 2) for _ in range(2)]
+        k_runs.append(graph_ms(kern, sets, reps, 3))
+        k_ms, p_ms = sum(k_runs) / 2, sum(p_runs) / 2
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        rows.append(dict(name=name, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                         bound_by='bytes' if bytes_ms >= ops_ms
+                         else 'operations'))
+        say(f'  {name}: {k_ms:.4f} ms on the card (CUDA graph, runs '
+            f'{k_runs[0]:.4f}, {k_runs[1]:.4f}); plain version {p_ms:.4f} '
+            f'ms; bound {bound:.4f} ms ({nops / 1e9:.3f} GFLOP at 67 TFLOP/s; '
+            f'{nbytes / 1e6:.1f} MB at 3.35 TB/s); {bound / k_ms:.3f} of '
+            f'the bound; [{smi}]')
+    say('  library call: none (no single PyTorch call computes the EGNN '
+        'pairwise block)')
+    return rows
+
+
+def cnf_timing_phase(flow, frames, train_step, smi):
+    """The CNF training step, the no-grad map evaluation, peak memory,
+    and the float32 dense path's step on the same map for comparison."""
+    def timed(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed(train_step, 3)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        eval_ms = timed(lambda: flow(frames), 3)
+    dense = copy.deepcopy(flow)
+    for layer in dense.dynamics.graph_layers:
+        layer.pairwise = 'dense'
+    dense_opt = torch.optim.AdamW(dense.parameters(), lr=1e-4,
+                                  weight_decay=1e-4, eps=1e-8)
+
+    def dense_step():
+        dense_opt.zero_grad(set_to_none=True)
+        cnf_loss(*dense(frames)).backward()
+        dense_opt.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    dense_ms = timed(dense_step, 2)
+    dense_peak = torch.cuda.max_memory_allocated()
+    del dense, dense_opt
+    say(f'  training step (fused): {step_ms:.2f} ms, '
+        f'{CNF_BATCH / step_ms * 1e3:.1f} frames/s at batch {CNF_BATCH}; '
+        f'peak memory {peak / 2**20:.1f} MiB; [{smi}]')
+    say(f'  map evaluation (no grad, fused): {eval_ms:.2f} ms, '
+        f'{CNF_BATCH / eval_ms * 1e3:.1f} frames/s; [{smi}]')
+    say(f'  training step (dense, float32, same map): {dense_ms:.2f} ms, '
+        f'{CNF_BATCH / dense_ms * 1e3:.1f} frames/s; peak memory '
+        f'{dense_peak / 2**20:.1f} MiB; [{smi}]')
+    return dict(step_ms=step_ms, frames_per_s=CNF_BATCH / step_ms * 1e3,
+                eval_ms=eval_ms, peak_bytes=peak, dense_step_ms=dense_ms,
+                dense_peak_bytes=dense_peak)
+
+
 def main():
+    import threading
+
     import tfep_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from tfep_tpu_torch.ops import egnn
 
     say('[1] card')
     smi = card_phase()
     device = torch.device('cuda')
+    # nvcc builds the EGNN kernels while the Triton phases run.
+    built = []
+    build_thread = threading.Thread(target=lambda: built.append(_timed_build(
+        egnn.build)))
+    build_thread.start()
 
     say('[2] kernels against their plain version (float32, bench shape)')
     t0 = time.perf_counter()
@@ -484,6 +866,31 @@ def main():
     say('[4] times')
     rows, step = timing_phase(device, flow, frames, train_step, smi)
     profile_phase(train_step, step['step_ms'], smi)
+    del flow, frames, train_step
+    torch.cuda.empty_cache()
+
+    say('[5] EGNN kernels K3/K4/K5 against their plain version (float32)')
+    build_thread.join()
+    if not built or isinstance(built[0], BaseException):
+        raise RuntimeError('building the EGNN kernels failed') from (
+            built[0] if built else None)
+    path, build_s = built[0]
+    say(f'  nvcc built {path.name} in {build_s:.1f} s (beside the Triton '
+        'phases); ptxas:')
+    for line in path.with_suffix('.ptxas.txt').read_text().splitlines():
+        if 'registers' in line or 'spill' in line:
+            say('   ', line.strip())
+    egnn_errors = egnn_kernel_phase(device)
+
+    say('[6] the CNF slice: cnf_bench training step, pairwise=fused')
+    cnf, cnf_frames = build_cnf(device)
+    cnf_launches, cnf_step = cnf_phase(cnf, cnf_frames)
+
+    say('[7] CNF times')
+    egnn_rows = egnn_timing_phase(device, smi)
+    cnf_times = cnf_timing_phase(cnf, cnf_frames, cnf_step, smi)
+    profile_phase(cnf_step, cnf_times['step_ms'], smi, n=2,
+                  batch=CNF_BATCH)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -503,12 +910,34 @@ def main():
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': None})
+    egnn_tpu = 'tfep_tpu/ops/pallas/egnn.py'
+    egnn_replaces = {
+        'egnn_forward': (f'{egnn_tpu}:113 (_forward_kernel, launched at '
+                         f'{egnn_tpu}:495 from _fwd_impl {egnn_tpu}:484)',
+                         'k3', 'K3'),
+        'egnn_jvp': (f'{egnn_tpu}:193 (_jvp_kernel, launched at '
+                     f'{egnn_tpu}:286 from _jvp_op {egnn_tpu}:264)',
+                     'k4', 'K4'),
+        'egnn_jvp_backward': (f'{egnn_tpu}:208 (_jvp_bwd_kernel, launched '
+                              f'at {egnn_tpu}:338 from _jvp_op_bwd '
+                              f'{egnn_tpu}:305)', 'k5', 'K5')}
+    for row in egnn_rows:
+        where, count, label = egnn_replaces[row['name']]
+        kernels.append({
+            'name': row['name'], 'route': 'cuda',
+            'source': 'tfep_tpu_torch/csrc/egnn.cu',
+            'replaces': where, 'launches': cnf_launches[count],
+            'max_abs_err': egnn_errors[label],
+            'ms': row['ms'], 'plain_ms': row['plain_ms'],
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'library_ms': None})
     say(json.dumps({'eager_launch_ms': {r['name']: r['eager_ms']
                                         for r in rows},
                     'train_step_ms': step['step_ms'],
                     'train_frames_per_s': step['frames_per_s'],
                     'eval_ms': step['eval_ms'],
                     'peak_memory_bytes': step['peak_bytes'],
+                    'cnf': cnf_times,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

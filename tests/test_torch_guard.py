@@ -10,7 +10,11 @@ import torch
 
 from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.nn.conditioners.made import MADE
-from tfep_tpu_torch.nn.flows import MAF, SequentialFlow
+from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics
+from tfep_tpu_torch.nn.embeddings import (
+    BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
+)
+from tfep_tpu_torch.nn.flows import ContinuousFlow, MAF, SequentialFlow
 from tfep_tpu_torch.nn.masked import MaskedLinear
 from tfep_tpu_torch.nn.transformers import (
     NeuralSplineTransformer, VolumePreservingShiftTransformer,
@@ -51,6 +55,13 @@ def no_card(monkeypatch):
     lambda: VolumePreservingShiftTransformer(),
     lambda: MADE(torch.Generator(), np.arange(3), np.arange(3)),
     lambda: MaskedLinear(torch.Generator(), 3, 4),
+    lambda: GaussianBasisExpansion([0.0, 1.0], [1.0, 1.0]),
+    lambda: BehlerParrinelloRadialExpansion(1.0, [0.0, 1.0], [1.0, 1.0]),
+    lambda: EGNNDynamics.create(torch.Generator(), [0, 1], 3.0),
+    lambda: EGNNDynamics.create(torch.Generator(), [0, 1], 3.0,
+                                pairwise='fused'),
+    lambda: MaskedVelocityDynamics.create(torch.nn.Identity(), [0], 3),
+    lambda: ContinuousFlow.create(torch.nn.Identity()),
 ])
 def test_entry_points_without_device_raise(no_card, entry_point):
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -61,6 +72,13 @@ def test_explicit_cpu_device(no_card):
     assert resolve_device('cpu') == torch.device('cpu')
     layer = MaskedLinear(torch.Generator(), 3, 4, device='cpu')
     assert layer.weight.device.type == 'cpu'
+
+
+def test_explicit_cpu_device_cnf(no_card):
+    dynamics = EGNNDynamics.create(torch.Generator(), [0, 1], 3.0,
+                                   device='cpu', pairwise='fused')
+    flow = ContinuousFlow.create(dynamics, device='cpu')
+    assert all(p.device.type == 'cpu' for p in flow.parameters())
 
 
 def test_compute_dtype_is_not_ported():

@@ -1,8 +1,13 @@
-"""Neural-network layer of the port: flows, transformers, conditioners."""
+"""Neural-network layer of the port: flows, transformers, conditioners,
+the CNF's dynamics, embeddings and ODE solvers."""
 
 from tfep_tpu_torch.nn.masked import MaskedLinear, create_autoregressive_mask  # noqa: F401
 from tfep_tpu_torch.nn.flows import (  # noqa: F401
-    AutoregressiveFlow, Flow, MAF, SequentialFlow,
+    AutoregressiveFlow, ContinuousFlow, Flow, MAF, SequentialFlow,
+)
+from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics  # noqa: F401
+from tfep_tpu_torch.nn.embeddings import (  # noqa: F401
+    BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
 )
 from tfep_tpu_torch.nn.transformers import (  # noqa: F401
     AffineTransformer, MAFTransformer, NeuralSplineTransformer, Transformer,

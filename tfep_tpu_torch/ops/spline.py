@@ -44,6 +44,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tfep_tpu_torch.ops import LaunchCounter
+
 __all__ = ['fused_spline', 'fused_spline_reference', 'LAUNCHES', 'softplus',
            'spline_offset', 'launch_forward', 'launch_backward',
            'forward_bytes', 'backward_bytes', 'forward_ops', 'backward_ops']
@@ -73,23 +75,7 @@ def backward_ops(B: int, F: int, K: int) -> int:
     return B * F * (89 * K + 145)
 
 
-class LaunchCounter:
-    """Kernel launches since the last :meth:`reset`, one int per kernel.
-
-    Each wrapper adds one where it launches its kernel and nowhere else, so
-    a run can show that its main path went through the kernels.
-    """
-
-    def __init__(self):
-        self.forward = 0
-        self.backward = 0
-
-    def reset(self):
-        self.forward = 0
-        self.backward = 0
-
-
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter('forward', 'backward')
 
 BLOCK_B = 4
 BLOCK_F = 32
