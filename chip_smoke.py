@@ -26,7 +26,8 @@ Phases, each of which passes or exits non-zero:
    (forward and tangent) and K5 (backward of K4) from this checkout while
    phases 2-4 run; each is held against its plain PyTorch version in
    float32 at the bench shape of ``benchmarks/cnf_bench.py`` (B=256, n=32,
-   F=D=64) and at a ragged shape with pairs beyond the cutoff.
+   F=D=64), at a ragged shape with pairs beyond the cutoff, and at n=70
+   (three sender tiles, the last one partial; F=33, D=17).
 6. CNF slice: ``benchmarks/cnf_bench.py``'s configuration with
    ``pairwise='fused'`` (32 atoms, EGNN dynamics of 4 layers at width 64,
    rk4 with 8 steps, one Hutchinson probe, regularization, checkpointed
@@ -35,9 +36,10 @@ Phases, each of which passes or exits non-zero:
    probe; then the counted path (counts of K3/K4/K5 set to 0 just before,
    read just after): one no-grad map evaluation, the training steps, one
    plain evaluation of the field; then a forward/inverse round trip.
-7. CNF times: each EGNN kernel and its plain version, the training step
-   (beside the dense path's on the same map), the map evaluation, peak
-   memory, and the profiler's breakdown of the step.
+7. CNF times: the launch configuration of K3/K4 (warps per block, blocks
+   per SM, registers, spills), each EGNN kernel and its plain version, the
+   training step (beside the dense path's on the same map), the map
+   evaluation, peak memory, and the profiler's breakdown of the step.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -461,7 +463,7 @@ def profile_phase(train_step, step_ms, smi, n=5, batch=B):
         name = event.name.lower()
         if name in ('forward_kernel', 'backward_kernel'):
             kind = 'spline kernels (K1, K2)'
-        elif 'egnn_kernel' in name or 'reduce_partials' in name:
+        elif 'egnn_' in name or 'reduce_partials' in name:
             kind = 'EGNN kernels (K3, K4, K5)'
         elif any(s in name for s in ('gemm', 'xmma', 'cutlass', 'sm90_')):
             kind = 'matrix products (cuBLAS)'
@@ -558,7 +560,8 @@ def egnn_kernel_phase(device):
         '(float32 sums of 64 products in another order; the weight '
         'gradients sum over every pair of the batch)')
     for shape, spread in (((CNF_BATCH, N_ATOMS, CNF_FEAT, CNF_FEAT), 0.5),
-                          ((7, 13, CNF_FEAT, CNF_FEAT), 4.0)):
+                          ((7, 13, CNF_FEAT, CNF_FEAT), 4.0),
+                          ((3, 70, 33, 17), 4.0)):
         primals, tangents, cots = egnn_inputs(*shape, device, 5, spread)
         with torch.no_grad():
             k3 = E.egnn_pairwise(*primals, R_CUTOFF)
@@ -740,6 +743,20 @@ def egnn_timing_phase(device, smi):
     """Each EGNN kernel and its plain version at the bench shape."""
     from tfep_tpu_torch.ops import egnn as E
     B, n, F, D = CNF_BATCH, N_ATOMS, CNF_FEAT, CNF_FEAT
+    ptxas = E.ptxas_report()
+    for label, tangent in (('K3', False), ('K4', True)):
+        cfg = E.forward_config(torch.float32, tangent, B, n, F, D, device)
+        (spills,) = [v for k, v in ptxas.items()
+                     if f'egnn_fwd_kernelIfLb{int(tangent)}' in k]
+        say(f'  {label} egnn_fwd_kernel<float, {str(tangent).lower()}>: '
+            f'{spills["registers"]} registers, {spills["spill_store_bytes"]} '
+            f'bytes of spill stores, {spills["stack_bytes"]} bytes of stack '
+            f'per thread (ptxas); {cfg["warps_per_block"]} warps per block, '
+            f'{cfg["blocks_per_sm"]} blocks per SM (occupancy API), '
+            f'{cfg["smem_bytes"]} bytes of shared memory per block, grid '
+            f'{cfg["grid"]}')
+        if spills['spill_store_bytes']:
+            raise AssertionError(f'{label}: the forward kernel spills')
     sets = [egnn_inputs(B, n, F, D, device, 30 + s) for s in range(2)]
     # (primals, tangents, cotangents) per set.
 
@@ -916,7 +933,7 @@ def main():
                          f'{egnn_tpu}:495 from _fwd_impl {egnn_tpu}:484)',
                          'k3', 'K3'),
         'egnn_jvp': (f'{egnn_tpu}:193 (_jvp_kernel, launched at '
-                     f'{egnn_tpu}:286 from _jvp_op {egnn_tpu}:264)',
+                     f'{egnn_tpu}:286 from _jvp_op {egnn_tpu}:265)',
                      'k4', 'K4'),
         'egnn_jvp_backward': (f'{egnn_tpu}:208 (_jvp_bwd_kernel, launched '
                               f'at {egnn_tpu}:338 from _jvp_op_bwd '

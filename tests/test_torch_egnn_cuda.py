@@ -25,7 +25,10 @@ R_CUTOFF = 6.0
 # over every pair of the batch (per frame, then over frames) in another
 # order than autograd; float64: the same arithmetic in another order.
 TOLERANCES = {torch.float32: (1e-4, 1e-3), torch.float64: (1e-12, 1e-10)}
-SHAPES = [(256, 32, 64, 64), (7, 13, 64, 64), (5, 9, 24, 10)]
+# The bench shape; ragged ones; three sender tiles with a partial last one
+# and F, D not multiples of 4; a single atom, every pair masked.
+SHAPES = [(256, 32, 64, 64), (7, 13, 64, 64), (5, 9, 24, 10), (3, 70, 33, 17),
+          (2, 1, 64, 64)]
 
 
 @pytest.fixture
@@ -95,6 +98,28 @@ def test_kernels_match_plain_version(cuda, dtype, shape):
     names = ('a_i', 'a_j', 'dist') + E.WEIGHTS + ('da_i', 'da_j', 'dd')
     for label, a, b in zip(names, results['kernel'][1], results['plain'][1]):
         _check(a, b, bwd_tol, f'K5 grad {label}')
+
+
+def test_k4_repeats_bit_for_bit(cuda):
+    # The sums over senders run in a fixed order, with no atomics.
+    primals, tangents, _ = _inputs(3, 70, 33, 17, torch.float32, cuda)
+    first = E.launch_k4(*primals, *tangents, r_cutoff=R_CUTOFF)
+    second = E.launch_k4(*primals, *tangents, r_cutoff=R_CUTOFF)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('tangent', [False, True], ids=['k3', 'k4'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_forward_kernel_launch_config(cuda, dtype, tangent):
+    cfg = E.forward_config(dtype, tangent, 256, 32, 64, 64)
+    name = 'egnn_fwd_kernelI%sLb%d' % ('f' if dtype == torch.float32 else 'd',
+                                       tangent)
+    (ptxas,) = [v for k, v in E.ptxas_report().items() if name in k]
+    assert ptxas['spill_store_bytes'] == 0, ptxas
+    assert cfg['warps_per_block'] >= 1 and cfg['blocks_per_sm'] >= 1, cfg
+    if dtype == torch.float32:
+        assert cfg['warps_per_block'] * cfg['blocks_per_sm'] >= 4, cfg
 
 
 def test_launch_counts(cuda):

@@ -6,25 +6,39 @@
 // are in tfep_tpu_torch/ops/egnn.py; this file follows
 // pairwise_jvp_backward_reference there line by line.
 //
-// One block per frame b walks the receiver rows i and, inside a row, tiles
-// of PT senders j (PT = 32, 16, 8 or 4, the largest that fits). Between
-// two __syncthreads() every thread loops over its share of one phase's
-// work, and all state that crosses a barrier lives in shared memory (or,
-// when shared memory is too small, in device memory through the same
-// pointers). Products: each thread computes PM = 4 pairs of one output
-// column, so one load of a weight serves four pairs; the weight matrices
-// are stored with rows padded by one element, so the 32 threads of a warp
-// read 32 different banks.
+// All three are bound by operations: per pair, three (F, D)/(F, F)
+// matrix-vector products (six with the tangent, eighteen in K5) against a
+// few hundred bytes of input, in float32 SIMT (no tensor cores).
 //
-// K5's eleven weight gradients are summed per block (one frame) into
-// `partials`, then reduce_partials sums them over the frames in a fixed
-// order. Per-frame gradients (a_i, a_j, dist and their tangents) are
-// written by the block that owns the frame, with no atomics.
+// K3 and K4, egnn_fwd_kernel<T, kTangent>: one thread per pair and one warp
+// per receiver row. The lane that owns a pair runs its whole chain on its
+// own row of the warp's shared memory, so the chain has no barrier. The
+// products are register-tiled: the weights are stored transposed, and for
+// each k a lane takes its own operand (and tangent) and broadcasts 64
+// weights in 16 loads of 16 bytes, for 64 multiply-adds (128 in K4). Those
+// broadcasts, about one float per clock per SM, are what bounds the
+// products: about 25% of the f32 peak in K3, 50% in K4.
+//
+// K5, egnn_kernel<T>: one block per frame b walks the receiver rows i and,
+// inside a row, tiles of PT senders j (PT = 32, 16, 8 or 4, the largest
+// that fits). Between two __syncthreads() every thread loops over its
+// share of one phase's work, and all state that crosses a barrier lives in
+// shared memory (or, when shared memory is too small, in device memory
+// through the same pointers). Products: each thread computes PM = 4 pairs
+// of one output column, so one load of a weight serves four pairs; the
+// weight matrices are stored with rows padded by one element, so the 32
+// threads of a warp read 32 different banks. The eleven weight gradients
+// are summed per block (one frame) into `partials`, then reduce_partials
+// sums them over the frames in a fixed order. Per-frame gradients (a_i,
+// a_j, dist and their tangents) are written by the block that owns the
+// frame, with no atomics.
 //
 // C interface (bound with ctypes): egnn_k3/k4/k5(dtype, device, inputs,
 // outputs, scratch, B, n, F, D, r_cutoff, stream) return 0, a CUDA error
-// code, or -1 when no block configuration fits in shared memory.
+// code, or -1 when no block configuration fits on the card;
+// egnn_fwd_info reports the forward kernel's launch configuration.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,9 +61,6 @@ __device__ __forceinline__ T sigmoid(T x) {
   return T(1) / (T(1) + d_exp(-x));
 }
 
-// Kernel modes: K3 primal, K4 primal and tangent, K5 VJP of K4.
-enum Mode { kK3 = 0, kK4 = 1, kK5 = 2 };
-
 template <typename T>
 struct Args {
   // Inputs: the 14 primals, the 3 tangents (K4, K5), the 4 cotangents (K5).
@@ -66,6 +77,346 @@ struct Args {
   T rc;
   int w_smem, g_smem;  // weights / gradient sums in shared memory
 };
+
+// =========================================================================
+// K3 and K4: egnn_fwd_kernel<T, kTangent>
+// =========================================================================
+
+// Output columns a lane accumulates at once in a product (with as many
+// more for the tangent in K4): 64 in float32, 32 in float64.
+template <typename T>
+__host__ __device__ constexpr int fwd_chunk() {
+  return 64 * 4 / (int)sizeof(T);
+}
+
+// Most warps per block: K4's 128 accumulators need up to 255 registers a
+// thread, so 8 warps; K3 at most 168, so 12.
+template <bool kTangent>
+__host__ __device__ constexpr int fwd_max_warps() {
+  return kTangent ? 8 : 12;
+}
+
+// Shared memory of the forward kernel, in elements of T: the transposed
+// weights, zero-padded to ldt columns (a multiple of the chunk), and the
+// small vectors, once per block; then one slice per warp with a buffer X
+// of 32 rows (and its tangent) of an odd stride, so that the 32 lanes,
+// each reading its own row, hit 32 different banks; a second buffer Y
+// where F > chunk (a product whose outputs span several chunks cannot
+// overwrite its input; with one chunk the epilogue runs after the last
+// read, and Y is X); and the row's message sums.
+struct FwdLayout {
+  int ldt, stride;
+  int wet, wm2t, wx1t, mu, gam, b1, bm2, watt, bx1, wx2, batt;
+  int warp0, per_warp, x, y, x2, y2, nm, dnm, total;
+  __host__ __device__ FwdLayout(int F, int D, int chunk, bool tangent,
+                                int warps) {
+    ldt = (F + chunk - 1) / chunk * chunk;
+    stride = F | 1;
+    int at = 0;
+    auto take = [&at](int size) {
+      int start = at;
+      at += (size + 3) & ~3;  // keep every array 16-byte aligned
+      return start;
+    };
+    wet = take(D * ldt);
+    wm2t = take(F * ldt);
+    wx1t = take(F * ldt);
+    mu = take(D);
+    gam = take(D);
+    b1 = take(F);
+    bm2 = take(F);
+    watt = take(F);
+    bx1 = take(F);
+    wx2 = take(F);
+    batt = take(1);
+    warp0 = at;
+    at = 0;
+    x = take(32 * stride);
+    x2 = take(tangent ? 32 * stride : 0);
+    y = F <= chunk ? x : take(32 * stride);
+    y2 = F <= chunk ? x2 : take(tangent ? 32 * stride : 0);
+    nm = take(F);
+    dnm = take(tangent ? F : 0);
+    per_warp = at;
+    total = warp0 + warps * per_warp;
+  }
+};
+
+// 16 bytes of shared memory as one load (a broadcast when every lane of
+// the warp reads the same address).
+__device__ __forceinline__ void load16(const float* p, float (&w)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&w)[2]) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  w[0] = v.x;
+  w[1] = v.y;
+}
+
+// C columns of one lane's row of a product: acc[c] = sum_k a_k Wt[k][c]
+// (a W^T, with Wt = W^T in shared memory, offset to the chunk's first
+// column), and acc2 the same of the tangent a2 on the same weight loads.
+// act(k, a_k, a2_k) gives the lane's operands (from its own row, or
+// computed); the C weights come as 16-byte broadcasts, for 2C multiply-
+// adds per k. The caller's epilogue loops over c fully unrolled, so acc
+// and acc2 stay in registers.
+template <typename T, int C, bool kTwo, typename Act>
+__device__ __forceinline__ void chunk_product(int K, int ldt, Act act,
+                                              const T* Wt, T (&acc)[C],
+                                              T (&acc2)[C]) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = acc2[c] = T(0);
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    T x, x2 = T(0);
+    act(k, x, x2);
+    const T* w = Wt + k * ldt;
+#pragma unroll
+    for (int c = 0; c < C; c += V) {
+      T wv[V];
+      load16(w + c, wv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc[c + v] += x * wv[v];
+        if constexpr (kTwo) acc2[c + v] += x2 * wv[v];
+      }
+    }
+  }
+}
+
+// One warp per receiver row (b, i), lane p owning the pair (i, j0 + p) of
+// each tile of 32 senders: its radial expansion, the three products of its
+// row, the SiLUs, the attention and the magnitude, with their tangents
+// (kTangent: K4; else K3). The tile's a_j rows are staged into the warp's
+// buffer by coalesced asynchronous copies; past them, a lane reads and
+// writes only its own rows, so the chain needs no barrier; the message sums
+// over the tile's senders read the other lanes' rows, between two
+// __syncwarp(). Each lane sums its own features over the senders in order,
+// so every row writes nm (and dnm) once, with no atomics. The blocks are persistent:
+// the weights are loaded once per block, then each warp walks the rows
+// (b, i) with a stride of all the grid's warps.
+template <typename T, bool kTangent>
+__global__ void __launch_bounds__(fwd_max_warps<kTangent>() * 32)
+egnn_fwd_kernel(Args<T> a) {
+  constexpr int C = fwd_chunk<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int n = a.n, F = a.F, D = a.D;
+  const int tid = threadIdx.x, nt = blockDim.x, warps = nt / 32;
+  const FwdLayout L(F, D, C, kTangent, warps);
+  const int ldt = L.ldt, S = L.stride;
+
+  // Wt[k][f] = W[f][k] for f < F, zero for F <= f < ldt.
+  T* WeT = sm + L.wet;
+  T* Wm2T = sm + L.wm2t;
+  T* Wx1T = sm + L.wx1t;
+  for (int e = tid; e < D * ldt; e += nt) {
+    const int k = e / ldt, f = e % ldt;
+    WeT[e] = f < F ? a.w_e[f * D + k] : T(0);
+  }
+  for (int e = tid; e < F * ldt; e += nt) {
+    const int k = e / ldt, f = e % ldt;
+    Wm2T[e] = f < F ? a.w_m2[f * F + k] : T(0);
+    Wx1T[e] = f < F ? a.w_x1[f * F + k] : T(0);
+  }
+  T* s_mu = sm + L.mu;
+  T* s_gam = sm + L.gam;
+  T* s_b1 = sm + L.b1;
+  T* s_bm2 = sm + L.bm2;
+  T* s_watt = sm + L.watt;
+  T* s_bx1 = sm + L.bx1;
+  T* s_wx2 = sm + L.wx2;
+  for (int k = tid; k < D; k += nt) {
+    s_mu[k] = a.mu[k];
+    s_gam[k] = d_exp(a.lg[k]);
+  }
+  for (int f = tid; f < F; f += nt) {
+    s_b1[f] = a.b1[f];
+    s_bm2[f] = a.b_m2[f];
+    s_watt[f] = a.w_att[f];
+    s_bx1[f] = a.b_x1[f];
+    s_wx2[f] = a.w_x2[f];
+  }
+  const T batt = a.b_att[0];
+  __syncthreads();
+
+  const int lane = tid % 32, warp = tid / 32;
+  T* slice = sm + L.warp0 + warp * L.per_warp;
+  T* X = slice + L.x;        // a_j, (s,) ms, then msg
+  T* X2 = slice + L.x2;      // their tangents
+  T* nmacc = slice + L.nm;   // the row's message sums (lane f % 32 owns f)
+  T* dnmacc = slice + L.dnm;
+  T* xr = X + lane * S;      // this lane's rows
+  T* x2r = X2 + lane * S;
+  T* yr = slice + L.y + lane * S;   // s and its tangent (X if F <= C)
+  T* y2r = slice + L.y2 + lane * S;
+  const T rc = a.rc;
+  const T c = T(kPi) / rc;
+  const int rows = a.B * n;
+
+  for (int r = blockIdx.x * warps + warp; r < rows;
+       r += gridDim.x * warps) {
+    const int i = r % n;
+    const size_t frame = (size_t)(r - i) * F;  // node (b, 0)
+    const size_t pairs = (size_t)r * n;        // pair (b, i, 0)
+    const T* ai = a.a_i + (size_t)r * F;
+    const T* dai = kTangent ? a.da_i + (size_t)r * F : nullptr;
+    for (int f = lane; f < F; f += 32) {
+      nmacc[f] = T(0);
+      if (kTangent) dnmacc[f] = T(0);
+    }
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int j = j0 + lane;
+      const bool valid = j < n;
+      const T d = valid ? a.dist[pairs + j] : T(1);
+      T dd = T(0);
+      if constexpr (kTangent) dd = valid ? a.dd[pairs + j] : T(0);
+      const T mk = (valid && i != j && d <= rc) ? T(1) : T(0);
+      const bool inside = d <= rc;
+      const T Sw = inside ? T(0.5) * d_cos(c * d) + T(0.5) : T(0);
+      const T S1 = inside ? T(-0.5) * c * d_sin(c * d) : T(0);
+      const int np = n - j0 < 32 ? n - j0 : 32;  // senders in the tile
+      // The previous tile's message sums have read every lane's X.
+      __syncwarp();
+      // The tile's a_j (and da_j) rows, contiguous in memory, into X (and
+      // X2): a row at a time along f, coalesced; zero past the row's end.
+      const size_t node0 = frame + (size_t)j0 * F;
+      for (int p = 0; p < 32; ++p) {
+        for (int f = lane; f < F; f += 32) {
+          if (p < np) {
+            __pipeline_memcpy_async(X + p * S + f, a.a_j + node0 + p * F + f,
+                                    sizeof(T));
+            if constexpr (kTangent)
+              __pipeline_memcpy_async(X2 + p * S + f,
+                                      a.da_j + node0 + p * F + f, sizeof(T));
+          } else {
+            X[p * S + f] = T(0);
+            if constexpr (kTangent) X2[p * S + f] = T(0);
+          }
+        }
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+
+      // pre = a_i + a_j + W_e emb + b1, s = silu(pre); and tangents. The
+      // radial expansion emb (and its tangent, d emb/d dist times dd) is
+      // computed in the product, one k at a time.
+      auto radial = [&](int k, T& x, T& x2) {
+        const T rk = d - s_mu[k];
+        const T g = s_gam[k];
+        const T G = d_exp(-g * rk * rk);
+        x = G * Sw;
+        if constexpr (kTangent) x2 = G * (S1 - T(2) * g * rk * Sw) * dd;
+      };
+      for (int f0 = 0; f0 < F; f0 += C) {
+        T acc[C], dacc[C];
+        chunk_product<T, C, kTangent>(D, ldt, radial, WeT + f0, acc, dacc);
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int f = f0 + cc;
+          if (f < F) {
+            const T v = acc[cc] + ai[f] + xr[f] + s_b1[f];
+            const T sg = sigmoid(v);
+            yr[f] = v * sg;
+            if constexpr (kTangent) {
+              const T dv = dacc[cc] + dai[f] + x2r[f];
+              y2r[f] = sg * (T(1) + v * (T(1) - sg)) * dv;
+            }
+          }
+        }
+      }
+
+      // ms = silu(W_m2 s + b_m2), and the attention logit w_att . ms.
+      auto s_row = [&](int k, T& x, T& x2) {
+        x = yr[k];
+        if constexpr (kTangent) x2 = y2r[k];
+      };
+      T v = batt, dv = T(0);
+      for (int f0 = 0; f0 < F; f0 += C) {
+        T acc[C], dacc[C];
+        chunk_product<T, C, kTangent>(F, ldt, s_row, Wm2T + f0, acc, dacc);
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int f = f0 + cc;
+          if (f < F) {
+            const T m = acc[cc] + s_bm2[f];
+            const T sg = sigmoid(m);
+            const T ms = m * sg;
+            xr[f] = ms;
+            v += ms * s_watt[f];
+            if constexpr (kTangent) {
+              const T dms = sg * (T(1) + m * (T(1) - sg)) * dacc[cc];
+              x2r[f] = dms;
+              dv += dms * s_watt[f];
+            }
+          }
+        }
+      }
+      const T att = sigmoid(v);
+      const T datt = att * (T(1) - att) * dv;
+
+      // Masked messages, in place.
+      for (int f = 0; f < F; ++f) {
+        const T ms = xr[f];
+        if constexpr (kTangent) x2r[f] = (x2r[f] * att + ms * datt) * mk;
+        xr[f] = ms * att * mk;
+      }
+      __syncwarp();
+      // Their sums over the tile's senders, each lane its own features.
+      for (int f = lane; f < F; f += 32) {
+        T sum = T(0), dsum = T(0);
+        for (int p = 0; p < np; ++p) {
+          sum += X[p * S + f];
+          if constexpr (kTangent) dsum += X2[p * S + f];
+        }
+        nmacc[f] += sum;
+        if constexpr (kTangent) dnmacc[f] += dsum;
+      }
+
+      // Magnitude: t = tanh(w_x2 . silu(W_x1 msg + b_x1)), q its tangent's
+      // logit.
+      auto msg_row = [&](int k, T& x, T& x2) {
+        x = xr[k];
+        if constexpr (kTangent) x2 = x2r[k];
+      };
+      T u = T(0), q = T(0);
+      for (int f0 = 0; f0 < F; f0 += C) {
+        T acc[C], dacc[C];
+        chunk_product<T, C, kTangent>(F, ldt, msg_row, Wx1T + f0, acc, dacc);
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int f = f0 + cc;
+          if (f < F) {
+            const T z = acc[cc] + s_bx1[f];
+            const T sg = sigmoid(z);
+            u += z * sg * s_wx2[f];
+            if constexpr (kTangent)
+              q += sg * (T(1) + z * (T(1) - sg)) * dacc[cc] * s_wx2[f];
+          }
+        }
+      }
+      if (valid) {
+        const T t = d_tanh(u);
+        a.mag[pairs + j] = t * mk;
+        if constexpr (kTangent) a.dmag[pairs + j] = (T(1) - t * t) * q * mk;
+      }
+    }
+    for (int f = lane; f < F; f += 32) {
+      a.nm[(size_t)r * F + f] = nmacc[f];
+      if (kTangent) a.dnm[(size_t)r * F + f] = dnmacc[f];
+    }
+  }
+}
+
+// =========================================================================
+// K5: egnn_kernel<T>, the VJP of K4
+// =========================================================================
 
 // Offsets of the weight gradients inside one block's sums, in argument
 // order: mu, log_gammas, w_e, b1, w_m2, b_m2, w_att, b_att, w_x1, b_x1, w_x2.
@@ -87,8 +438,8 @@ struct GradOffsets {
   }
 };
 
-// Shared-memory layout, in elements of T; the host sizes the launch with
-// the same arithmetic.
+// K5's shared-memory layout, in elements of T; the host sizes the launch
+// with the same arithmetic.
 struct Layout {
   int we, wm2, wx1;                             // padded weights (w_smem)
   int mu, gam, b1, bm2, watt, bx1, wx2, batt;   // small vectors
@@ -98,8 +449,7 @@ struct Layout {
   int sc;                                       // per-pair scalars
   int total;
   static constexpr int kScalars = 12;
-  __host__ __device__ Layout(int mode, int F, int D, int pt, int w_smem,
-                             int g_smem) {
+  __host__ __device__ Layout(int F, int D, int pt, int w_smem, int g_smem) {
     int at = 0;
     auto take = [&at](int size) {
       int start = at;
@@ -117,31 +467,30 @@ struct Layout {
     bx1 = take(F);
     wx2 = take(F);
     batt = take(1);
-    gacc = take(mode == kK5 && g_smem ? GradOffsets(F, D).total : 0);
-    const bool tangent = mode != kK3;
+    gacc = take(g_smem ? GradOffsets(F, D).total : 0);
     emb = take(pt * D);
-    demb = take(tangent ? pt * D : 0);
-    pre = take(mode == kK5 ? pt * F : 0);
-    dpre = take(mode == kK5 ? pt * F : 0);
+    demb = take(pt * D);
+    pre = take(pt * F);
+    dpre = take(pt * F);
     s = take(pt * F);
-    ds = take(tangent ? pt * F : 0);
-    m1 = take(mode == kK5 ? pt * F : 0);
-    dm1 = take(mode == kK5 ? pt * F : 0);
+    ds = take(pt * F);
+    m1 = take(pt * F);
+    dm1 = take(pt * F);
     ms = take(pt * F);
-    dms = take(tangent ? pt * F : 0);
+    dms = take(pt * F);
     msg = take(pt * F);
-    dmsg = take(tangent ? pt * F : 0);
+    dmsg = take(pt * F);
     z1 = take(pt * F);
-    dz1 = take(tangent ? pt * F : 0);
+    dz1 = take(pt * F);
     sc = take(kScalars * pt);
     total = at;
   }
 };
 
 // out(p, f) for p < pt, f < N: acc = sum_k A[p][k] W[f][k] (A W^T), and
-// with A2 the same product of A2 (the tangent) on the same weight loads;
+// acc2 the same product of A2 (the tangent) on the same weight loads;
 // epi(p, f, acc, acc2) consumes them.
-template <typename T, bool kTwo, typename Epi>
+template <typename T, typename Epi>
 __device__ __forceinline__ void mm_abt(int pt, int N, int K, const T* A,
                                        const T* A2, const T* W, int ldw,
                                        Epi epi) {
@@ -156,7 +505,7 @@ __device__ __forceinline__ void mm_abt(int pt, int N, int K, const T* A,
       const T wk = w[k];
       for (int m = 0; m < PM; ++m) {
         acc[m] += A[(p0 + m) * K + k] * wk;
-        if (kTwo) acc2[m] += A2[(p0 + m) * K + k] * wk;
+        acc2[m] += A2[(p0 + m) * K + k] * wk;
       }
     }
     for (int m = 0; m < PM; ++m) epi(p0 + m, f, acc[m], acc2[m]);
@@ -217,7 +566,7 @@ __device__ __forceinline__ void mm_atb2(int pt, int N, int K, const T* A1,
   }
 }
 
-template <typename T, int kMode>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 egnn_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -225,8 +574,7 @@ egnn_kernel(Args<T> a) {
   const int b = blockIdx.x;
   const int n = a.n, F = a.F, D = a.D, pt = a.pt;
   const int tid = threadIdx.x, nt = blockDim.x;
-  constexpr bool tangent = kMode != kK3;
-  const Layout L(kMode, F, D, pt, a.w_smem, a.g_smem);
+  const Layout L(F, D, pt, a.w_smem, a.g_smem);
   const GradOffsets GO(F, D);
   const T rc = a.rc;
   const T c = T(kPi) / rc;
@@ -299,7 +647,7 @@ egnn_kernel(Args<T> a) {
   const size_t node0 = (size_t)b * n * F;
   const size_t pair0 = (size_t)b * n * n;
   T* gacc = nullptr;
-  if (kMode == kK5) {
+  {
     gacc = a.g_smem ? sm + L.gacc : a.partials + (size_t)b * GO.total;
     for (int e = tid; e < GO.total; e += nt) gacc[e] = T(0);
     for (int e = tid; e < n * F; e += nt) {
@@ -307,11 +655,6 @@ egnn_kernel(Args<T> a) {
       a.g_a_j[node0 + e] = T(0);
       a.g_da_i[node0 + e] = T(0);
       a.g_da_j[node0 + e] = T(0);
-    }
-  } else {
-    for (int e = tid; e < n * F; e += nt) {
-      a.nm[node0 + e] = T(0);
-      if (tangent) a.dnm[node0 + e] = T(0);
     }
   }
   __syncthreads();
@@ -325,7 +668,7 @@ egnn_kernel(Args<T> a) {
         const T d = valid ? a.dist[pair0 + i * n + j] : T(1);
         sd[p] = d;
         smask[p] = (valid && i != j && d <= rc) ? T(1) : T(0);
-        if (tangent) sdd[p] = valid ? a.dd[pair0 + i * n + j] : T(0);
+        sdd[p] = valid ? a.dd[pair0 + i * n + j] : T(0);
       }
       __syncthreads();
 
@@ -339,7 +682,7 @@ egnn_kernel(Args<T> a) {
         const bool inside = d <= rc;
         const T S = inside ? T(0.5) * d_cos(c * d) + T(0.5) : T(0);
         emb[e] = G * S;
-        if (tangent) {
+        {
           const T S1 = inside ? T(-0.5) * c * d_sin(c * d) : T(0);
           demb[e] = G * (S1 - T(2) * g * r * S) * sdd[p];
         }
@@ -355,15 +698,15 @@ egnn_kernel(Args<T> a) {
                       (valid ? a.a_j[node0 + j * F + f] : T(0)) + s_b1[f];
           const T sg = sigmoid(v);
           s[p * F + f] = v * sg;
-          if (kMode == kK5) pre[p * F + f] = v;
-          if (tangent) {
+          pre[p * F + f] = v;
+          {
             const T dv = dacc + a.da_i[node0 + i * F + f] +
                          (valid ? a.da_j[node0 + j * F + f] : T(0));
             ds[p * F + f] = sg * (T(1) + v * (T(1) - sg)) * dv;
-            if (kMode == kK5) dpre[p * F + f] = dv;
+            dpre[p * F + f] = dv;
           }
         };
-        mm_abt<T, tangent>(pt, F, D, emb, demb, We, ldwe, epi);
+        mm_abt<T>(pt, F, D, emb, demb, We, ldwe, epi);
       }
       __syncthreads();
 
@@ -373,13 +716,13 @@ egnn_kernel(Args<T> a) {
           const T v = acc + s_bm2[f];
           const T sg = sigmoid(v);
           ms[p * F + f] = v * sg;
-          if (kMode == kK5) m1[p * F + f] = v;
-          if (tangent) {
+          m1[p * F + f] = v;
+          {
             dms[p * F + f] = sg * (T(1) + v * (T(1) - sg)) * dacc;
-            if (kMode == kK5) dm1[p * F + f] = dacc;
+            dm1[p * F + f] = dacc;
           }
         };
-        mm_abt<T, tangent>(pt, F, F, s, ds, Wm2, ldwm2, epi);
+        mm_abt<T>(pt, F, F, s, ds, Wm2, ldwm2, epi);
       }
       __syncthreads();
 
@@ -388,35 +731,28 @@ egnn_kernel(Args<T> a) {
         T v = batt, dv = T(0);
         for (int f = 0; f < F; ++f) {
           v += ms[p * F + f] * s_watt[f];
-          if (tangent) dv += dms[p * F + f] * s_watt[f];
+          dv += dms[p * F + f] * s_watt[f];
         }
         const T att = sigmoid(v);
         satt[p] = att;
-        if (tangent) {
+        {
           sdv[p] = dv;
           sdatt[p] = att * (T(1) - att) * dv;
         }
       }
       __syncthreads();
 
-      // Masked messages, and (K3, K4) their sum over the tile's senders.
+      // Masked messages.
       for (int f = tid; f < F; f += nt) {
-        T sum = T(0), dsum = T(0);
         for (int p = 0; p < pt; ++p) {
           const T mk = smask[p];
           const T m = ms[p * F + f] * satt[p] * mk;
           msg[p * F + f] = m;
-          sum += m;
-          if (tangent) {
+          {
             const T dm =
                 (dms[p * F + f] * satt[p] + ms[p * F + f] * sdatt[p]) * mk;
             dmsg[p * F + f] = dm;
-            dsum += dm;
           }
-        }
-        if (kMode != kK5) {
-          a.nm[node0 + i * F + f] += sum;
-          if (tangent) a.dnm[node0 + i * F + f] += dsum;
         }
       }
       __syncthreads();
@@ -425,9 +761,9 @@ egnn_kernel(Args<T> a) {
       {
         auto epi = [&](int p, int f, T acc, T dacc) {
           z1[p * F + f] = acc + s_bx1[f];
-          if (tangent) dz1[p * F + f] = dacc;
+          dz1[p * F + f] = dacc;
         };
-        mm_abt<T, tangent>(pt, F, F, msg, dmsg, Wx1, ldwx1, epi);
+        mm_abt<T>(pt, F, F, msg, dmsg, Wx1, ldwx1, epi);
       }
       __syncthreads();
 
@@ -438,21 +774,14 @@ egnn_kernel(Args<T> a) {
           const T z = z1[p * F + f];
           const T sg = sigmoid(z);
           u += z * sg * s_wx2[f];
-          if (tangent)
-            q += sg * (T(1) + z * (T(1) - sg)) * dz1[p * F + f] * s_wx2[f];
+          q += sg * (T(1) + z * (T(1) - sg)) * dz1[p * F + f] * s_wx2[f];
         }
         const T t = d_tanh(u);
         st[p] = t;
         sq[p] = q;
-        const int j = j0 + p;
-        if (kMode != kK5 && j < n) {
-          a.mag[pair0 + i * n + j] = t * smask[p];
-          if (tangent)
-            a.dmag[pair0 + i * n + j] = (T(1) - t * t) * q * smask[p];
-        }
       }
       __syncthreads();
-      if constexpr (kMode == kK5) {
+      {
         // ---- K5: the VJP of the tile's chain --------------------------------
         // Cotangents of q and of the magnitude logit u.
         for (int p = tid; p < pt; p += nt) {
@@ -650,7 +979,7 @@ egnn_kernel(Args<T> a) {
     }
   }
 
-  if (kMode == kK5 && a.g_smem) {
+  if (a.g_smem) {
     T* out = a.partials + (size_t)b * GO.total;
     for (int e = tid; e < GO.total; e += nt) out[e] = gacc[e];
   }
@@ -666,11 +995,91 @@ __global__ void reduce_partials(const T* partials, T* out, int B, int total) {
   out[e] = acc;
 }
 
-// The largest configuration that fits: every tile size with weights and
-// gradient sums in shared memory first, then without them.
+// Binds the C interface's pointers: the 14 primals, then (K4, K5) the
+// tangents of a_i, a_j, dist, then (K5) the four cotangents; the outputs
+// nm, mag (K3), then dnm, dmag (K4), or K5's six per-frame gradients and
+// the weight gradients.
 template <typename T>
-int configure(int mode, int device, int F, int D, Args<T>& a,
-              size_t& bytes) {
+Args<T> bind(const void* const* in, void* const* out, void* scratch,
+             int n_in, int B, int n, int F, int D, double rc) {
+  Args<T> a = {};
+  const T* const* x = reinterpret_cast<const T* const*>(in);
+  T* const* y = reinterpret_cast<T* const*>(out);
+  a.a_i = x[0]; a.a_j = x[1]; a.dist = x[2]; a.mu = x[3]; a.lg = x[4];
+  a.w_e = x[5]; a.b1 = x[6]; a.w_m2 = x[7]; a.b_m2 = x[8]; a.w_att = x[9];
+  a.b_att = x[10]; a.w_x1 = x[11]; a.b_x1 = x[12]; a.w_x2 = x[13];
+  if (n_in > 14) { a.da_i = x[14]; a.da_j = x[15]; a.dd = x[16]; }
+  if (n_in > 17) {
+    a.g_nm = x[17]; a.g_mag = x[18]; a.g_dnm = x[19]; a.g_dmag = x[20];
+    a.g_a_i = y[0]; a.g_a_j = y[1]; a.g_dist = y[2];
+    a.g_da_i = y[3]; a.g_da_j = y[4]; a.g_dd = y[5];
+    a.partials = static_cast<T*>(scratch);
+  } else {
+    a.nm = y[0]; a.mag = y[1];
+    if (n_in > 14) { a.dnm = y[2]; a.dmag = y[3]; }
+  }
+  a.B = B; a.n = n; a.F = F; a.D = D; a.rc = T(rc);
+  return a;
+}
+
+// The forward kernel's launch: the most warps per block (up to
+// fwd_max_warps) whose shared memory fits, the blocks per SM that
+// occupancy allows, and a persistent grid of at most SMs x that.
+struct FwdConfig {
+  int warps, blocks_per_sm, sms, grid;
+  size_t bytes;
+};
+
+template <typename T, bool kTangent>
+int configure_fwd(int device, int rows, int F, int D, FwdConfig& cfg) {
+  int limit = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&cfg.sms, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return err;
+  cfg.warps = 0;
+  for (int w = fwd_max_warps<kTangent>(); w >= 1 && !cfg.warps; --w) {
+    const FwdLayout L(F, D, fwd_chunk<T>(), kTangent, w);
+    cfg.bytes = sizeof(T) * (size_t)L.total;
+    if (cfg.bytes <= (size_t)limit) cfg.warps = w;
+  }
+  if (!cfg.warps) return -1;
+  err = cudaFuncSetAttribute(egnn_fwd_kernel<T, kTangent>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)cfg.bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &cfg.blocks_per_sm, egnn_fwd_kernel<T, kTangent>, cfg.warps * 32,
+      cfg.bytes);
+  if (err != cudaSuccess) return err;
+  if (cfg.blocks_per_sm < 1) return -1;
+  const int wanted = (rows + cfg.warps - 1) / cfg.warps;
+  const int resident = cfg.sms * cfg.blocks_per_sm;
+  cfg.grid = wanted < resident ? wanted : resident;
+  return 0;
+}
+
+template <typename T, bool kTangent>
+int launch_fwd(int device, const void* const* in, void* const* out, int B,
+               int n, int F, int D, double rc, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Args<T> a = bind<T>(in, out, nullptr, kTangent ? 17 : 14, B, n, F,
+                            D, rc);
+  FwdConfig cfg;
+  const int status = configure_fwd<T, kTangent>(device, B * n, F, D, cfg);
+  if (status != 0) return status;
+  egnn_fwd_kernel<T, kTangent><<<cfg.grid, cfg.warps * 32, cfg.bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// K5: the largest configuration that fits: every tile size with weights
+// and gradient sums in shared memory first, then without them.
+template <typename T>
+int configure(int device, int F, int D, Args<T>& a, size_t& bytes) {
   int limit = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -678,7 +1087,7 @@ int configure(int mode, int device, int F, int D, Args<T>& a,
   const int placements[3][2] = {{1, 1}, {1, 0}, {0, 0}};
   for (const auto& place : placements) {
     for (int pt = 32; pt >= PM; pt /= 2) {
-      const Layout L(mode, F, D, pt, place[0], place[1]);
+      const Layout L(F, D, pt, place[0], place[1]);
       bytes = sizeof(T) * (size_t)L.total;
       if (bytes <= (size_t)limit) {
         a.pt = pt;
@@ -691,58 +1100,42 @@ int configure(int mode, int device, int F, int D, Args<T>& a,
   return -1;
 }
 
-template <typename T, int kMode>
-int launch(int device, const void* const* in, void* const* out,
-           void* scratch, int B, int n, int F, int D, double rc,
-           void* stream) {
+template <typename T>
+int launch_k5(int device, const void* const* in, void* const* out,
+              void* scratch, int B, int n, int F, int D, double rc,
+              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Args<T> a = {};
-  const T* const* x = reinterpret_cast<const T* const*>(in);
-  T* const* y = reinterpret_cast<T* const*>(out);
-  a.a_i = x[0]; a.a_j = x[1]; a.dist = x[2]; a.mu = x[3]; a.lg = x[4];
-  a.w_e = x[5]; a.b1 = x[6]; a.w_m2 = x[7]; a.b_m2 = x[8]; a.w_att = x[9];
-  a.b_att = x[10]; a.w_x1 = x[11]; a.b_x1 = x[12]; a.w_x2 = x[13];
-  if (kMode != kK3) { a.da_i = x[14]; a.da_j = x[15]; a.dd = x[16]; }
-  if (kMode == kK5) {
-    a.g_nm = x[17]; a.g_mag = x[18]; a.g_dnm = x[19]; a.g_dmag = x[20];
-    a.g_a_i = y[0]; a.g_a_j = y[1]; a.g_dist = y[2];
-    a.g_da_i = y[3]; a.g_da_j = y[4]; a.g_dd = y[5];
-    a.partials = static_cast<T*>(scratch);
-  } else {
-    a.nm = y[0]; a.mag = y[1];
-    if (kMode == kK4) { a.dnm = y[2]; a.dmag = y[3]; }
-  }
-  a.B = B; a.n = n; a.F = F; a.D = D; a.rc = T(rc);
+  Args<T> a = bind<T>(in, out, scratch, 21, B, n, F, D, rc);
   size_t bytes = 0;
-  const int status = configure<T>(kMode, device, F, D, a, bytes);
+  const int status = configure<T>(device, F, D, a, bytes);
   if (status != 0) return status;
-  err = cudaFuncSetAttribute(egnn_kernel<T, kMode>,
+  err = cudaFuncSetAttribute(egnn_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  egnn_kernel<T, kMode><<<B, kThreads, bytes, s>>>(a);
+  egnn_kernel<T><<<B, kThreads, bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (kMode == kK5) {
-    const int total = GradOffsets(F, D).total;
-    reduce_partials<T><<<(total + 255) / 256, 256, 0, s>>>(
-        a.partials, y[6], B, total);
-    err = cudaGetLastError();
-  }
-  return err;
+  const int total = GradOffsets(F, D).total;
+  reduce_partials<T><<<(total + 255) / 256, 256, 0, s>>>(
+      a.partials, reinterpret_cast<T* const*>(out)[6], B, total);
+  return cudaGetLastError();
 }
 
-template <int kMode>
-int dispatch(int dtype, int device, const void* const* in, void* const* out,
-             void* scratch, int B, int n, int F, int D, double rc,
-             void* stream) {
-  if (dtype == 0)
-    return launch<float, kMode>(device, in, out, scratch, B, n, F, D, rc,
-                                stream);
-  return launch<double, kMode>(device, in, out, scratch, B, n, F, D, rc,
-                               stream);
+template <bool kTangent>
+int fwd_info(int dtype, int device, int rows, int F, int D, int* info) {
+  FwdConfig cfg;
+  const int status =
+      dtype == 0 ? configure_fwd<float, kTangent>(device, rows, F, D, cfg)
+                 : configure_fwd<double, kTangent>(device, rows, F, D, cfg);
+  if (status != 0) return status;
+  info[0] = cfg.warps;
+  info[1] = cfg.blocks_per_sm;
+  info[2] = (int)cfg.bytes;
+  info[3] = cfg.grid;
+  return 0;
 }
 
 }  // namespace
@@ -752,22 +1145,35 @@ extern "C" {
 int egnn_k3(int dtype, int device, const void* const* in, void* const* out,
             void* scratch, int B, int n, int F, int D, double rc,
             void* stream) {
-  return dispatch<kK3>(dtype, device, in, out, scratch, B, n, F, D, rc,
-                       stream);
+  if (dtype == 0)
+    return launch_fwd<float, false>(device, in, out, B, n, F, D, rc, stream);
+  return launch_fwd<double, false>(device, in, out, B, n, F, D, rc, stream);
 }
 
 int egnn_k4(int dtype, int device, const void* const* in, void* const* out,
             void* scratch, int B, int n, int F, int D, double rc,
             void* stream) {
-  return dispatch<kK4>(dtype, device, in, out, scratch, B, n, F, D, rc,
-                       stream);
+  if (dtype == 0)
+    return launch_fwd<float, true>(device, in, out, B, n, F, D, rc, stream);
+  return launch_fwd<double, true>(device, in, out, B, n, F, D, rc, stream);
 }
 
 int egnn_k5(int dtype, int device, const void* const* in, void* const* out,
             void* scratch, int B, int n, int F, int D, double rc,
             void* stream) {
-  return dispatch<kK5>(dtype, device, in, out, scratch, B, n, F, D, rc,
-                       stream);
+  if (dtype == 0)
+    return launch_k5<float>(device, in, out, scratch, B, n, F, D, rc,
+                            stream);
+  return launch_k5<double>(device, in, out, scratch, B, n, F, D, rc, stream);
+}
+
+// The forward kernel's launch for B * n rows (K4 if tangent, else K3):
+// info = {warps per block, blocks per SM, shared-memory bytes per block,
+// grid}.
+int egnn_fwd_info(int dtype, int tangent, int device, int rows, int F, int D,
+                  int* info) {
+  if (tangent) return fwd_info<true>(dtype, device, rows, F, D, info);
+  return fwd_info<false>(dtype, device, rows, F, D, info);
 }
 
 const char* egnn_error_string(int status) {

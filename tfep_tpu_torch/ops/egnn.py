@@ -22,13 +22,24 @@ eighteen in K5), against a few hundred bytes of input per pair, so the
 least time is the products' FLOPs over the card's float32 rate (counted
 in :func:`k3_ops`, :func:`k4_ops`, :func:`k5_ops`).
 
-Design (``tfep_tpu_torch/csrc/egnn.cu``). One block per frame ``b`` walks
-the receiver rows ``i`` and, inside a row, tiles of up to 32 senders. The
-three weight matrices (padded by one column against bank conflicts) and
-every per-pair intermediate of a tile stay in shared memory; the products
-are written in the kernel, each thread computing four pairs of one output
-feature. With one block per frame, the sums over ``j`` (``nm``) and over
-``i`` (``grad a_j`` in K5) stay inside the block, with no atomics. K5
+Design (``tfep_tpu_torch/csrc/egnn.cu``). K3 and K4 are one template,
+``egnn_fwd_kernel``: one thread per pair, one warp per receiver row
+``(b, i)``, tiles of 32 senders. The lane that owns a pair runs its whole
+chain (radial expansion, three products, SiLUs, attention, magnitude,
+tangents) on its own rows of the warp's shared memory, with no barrier.
+The products are register-tiled: the weights sit transposed in shared
+memory, and for each ``k`` a lane reads its own ``a[k]`` and broadcasts a
+chunk of 32-64 weights in 16-byte loads. The sums over ``j`` (``nm``)
+cross lanes through shared memory between two ``__syncwarp()``, in a
+fixed order, and each row writes its sums once: no atomics. Persistent
+blocks load the weights once, then their warps walk the rows.
+
+K5 (``egnn_kernel``): one block per frame ``b`` walks the receiver rows
+``i`` and, inside a row, tiles of up to 32 senders. The three weight
+matrices (padded by one column against bank conflicts) and every per-pair
+intermediate of a tile stay in shared memory; each thread of a product
+computes four pairs of one output feature. With one block per frame, the
+sums over ``i`` (``grad a_j``) stay inside the block, with no atomics. K5
 recomputes the K4 chain of a tile, then runs its VJP; the eleven weight
 gradients are summed per block into scratch and reduced over the frames
 by a second kernel, in a fixed order (deterministic). Where shared memory
@@ -62,6 +73,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -73,8 +85,8 @@ from tfep_tpu_torch.ops import LaunchCounter
 __all__ = ['egnn_pairwise', 'egnn_pairwise_jvp', 'pairwise_reference',
            'pairwise_jvp_reference', 'pairwise_jvp_backward_reference',
            'LAUNCHES', 'launch_k3', 'launch_k4', 'launch_k5', 'build',
-           'k3_bytes', 'k4_bytes', 'k5_bytes', 'k3_ops', 'k4_ops', 'k5_ops',
-           'n_weight_elements']
+           'forward_config', 'ptxas_report', 'k3_bytes', 'k4_bytes', 'k5_bytes', 'k3_ops',
+           'k4_ops', 'k5_ops', 'n_weight_elements']
 
 #: Names of the eleven weight arguments, in argument order.
 WEIGHTS = ('mu', 'log_gammas', 'w_e', 'b1', 'w_m2', 'b_m2', 'w_att',
@@ -373,10 +385,61 @@ def _library():
         fn.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32,
                        ctypes.c_double, ptr]
         fn.restype = i32
+    # dtype, tangent, device, rows, F, D, four ints out.
+    lib.egnn_fwd_info.argtypes = [i32, i32, i32, i32, i32, i32, ptr]
+    lib.egnn_fwd_info.restype = i32
     lib.egnn_error_string.argtypes = [i32]
     lib.egnn_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
+
+
+def forward_config(dtype, tangent: bool, B: int, n: int, F: int, D: int,
+                   device=None) -> dict:
+    """The launch of K4 (``tangent``) or K3 for ``B`` frames of ``n``
+    atoms on a CUDA card: warps per block, blocks per SM, shared-memory
+    bytes per block and the grid. Launches nothing; registers and spills
+    are in :func:`ptxas_report`."""
+    lib = _library()
+    device = torch.device('cuda') if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    info = (ctypes.c_int * 4)()
+    status = lib.egnn_fwd_info({torch.float32: 0, torch.float64: 1}[dtype],
+                               int(tangent), index, B * n, F, D, info)
+    if status == _NO_FIT:
+        raise ValueError(f'no block for F={F}, D={D} fits the card.')
+    if status != 0:
+        raise RuntimeError(lib.egnn_error_string(status).decode())
+    return dict(zip(('warps_per_block', 'blocks_per_sm', 'smem_bytes',
+                     'grid'), info))
+
+
+def ptxas_report() -> dict:
+    """What ``ptxas -v`` said of each kernel of the built library:
+    ``{mangled name: {'registers', 'stack_bytes', 'spill_store_bytes',
+    'spill_load_bytes'}}``."""
+    text = build().with_suffix('.ptxas.txt').read_text()
+    report, entry, props = {}, None, None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+            report[entry] = {}
+            continue
+        found = re.search(r'Function properties for (\S+)', line)
+        if found:
+            props = found.group(1)
+            continue
+        found = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
+                          r'stores, (\d+) bytes spill loads', line)
+        if found and props == entry in report:
+            report[entry].update(zip(
+                ('stack_bytes', 'spill_store_bytes', 'spill_load_bytes'),
+                map(int, found.groups())))
+        found = re.search(r'Used (\d+) registers', line)
+        if found and entry in report:
+            report[entry]['registers'] = int(found.group(1))
+    return report
 
 
 def _pointers(tensors):
