@@ -26,8 +26,10 @@ Phases, each of which passes or exits non-zero:
    (forward and tangent) and K5 (backward of K4) from this checkout while
    phases 2-4 run; each is held against its plain PyTorch version in
    float32 at the bench shape of ``benchmarks/cnf_bench.py`` (B=256, n=32,
-   F=D=64), at a ragged shape with pairs beyond the cutoff, and at n=70
-   (three sender tiles, the last one partial; F=33, D=17).
+   F=D=64), at a ragged shape with pairs beyond the cutoff, at F=24, D=10
+   and at n=70 (three sender tiles, the last one partial; F=33, D=17), with
+   the path (register-tiled or scalar) each of K5's products takes there,
+   and K5's registers and spills (the phase fails if it spills).
 6. CNF slice: ``benchmarks/cnf_bench.py``'s configuration with
    ``pairwise='fused'`` (32 atoms, EGNN dynamics of 4 layers at width 64,
    rk4 with 8 steps, one Hutchinson probe, regularization, checkpointed
@@ -555,13 +557,27 @@ def egnn_kernel_phase(device):
     from tfep_tpu_torch.ops import egnn as E
     names = ('a_i', 'a_j', 'dist') + E.WEIGHTS + ('da_i', 'da_j', 'dd')
     errors = {}
+    ptxas = E.ptxas_report()
+    for dtype in ('float', 'double'):
+        (k5,) = [v for k, v in ptxas.items()
+                 if f'egnn_kernelI{dtype[0]}E' in k]
+        say(f'  K5 egnn_kernel<{dtype}>: {k5["registers"]} registers, '
+            f'{k5["spill_store_bytes"]} bytes of spill stores, '
+            f'{k5["spill_load_bytes"]} of spill loads, {k5["stack_bytes"]} '
+            'bytes of stack per thread (ptxas)')
+        if k5['spill_store_bytes'] or k5['spill_load_bytes']:
+            raise AssertionError(f'K5 egnn_kernel<{dtype}> spills')
     say(f'  tolerances: forward and tangent {EGNN_FORWARD_TOL:g}, '
         f'gradients {EGNN_BACKWARD_TOL:g}, relative to max(1, max|plain|) '
         '(float32 sums of 64 products in another order; the weight '
         'gradients sum over every pair of the batch)')
     for shape, spread in (((CNF_BATCH, N_ATOMS, CNF_FEAT, CNF_FEAT), 0.5),
                           ((7, 13, CNF_FEAT, CNF_FEAT), 4.0),
+                          ((5, 9, 24, 10), 4.0),
                           ((3, 70, 33, 17), 4.0)):
+        paths = E.k5_product_paths(*shape[2:])
+        say(f'  B,n,F,D={shape}: K5 products (float32, weights in shared '
+            'memory): ' + ', '.join(f'{k} {v}' for k, v in paths.items()))
         primals, tangents, cots = egnn_inputs(*shape, device, 5, spread)
         with torch.no_grad():
             k3 = E.egnn_pairwise(*primals, R_CUTOFF)

@@ -25,10 +25,12 @@ R_CUTOFF = 6.0
 # over every pair of the batch (per frame, then over frames) in another
 # order than autograd; float64: the same arithmetic in another order.
 TOLERANCES = {torch.float32: (1e-4, 1e-3), torch.float64: (1e-12, 1e-10)}
-# The bench shape; ragged ones; three sender tiles with a partial last one
-# and F, D not multiples of 4; a single atom, every pair masked.
-SHAPES = [(256, 32, 64, 64), (7, 13, 64, 64), (5, 9, 24, 10), (3, 70, 33, 17),
-          (2, 1, 64, 64)]
+# The bench shape; ragged ones; three sender tiles with a partial last one,
+# F and D multiples of 4 (every K5 product register-tiled) and not (every
+# K5 product scalar); F a multiple of 4 and D not (K5's products over D
+# scalar, the others tiled); a single atom, every pair masked.
+SHAPES = [(256, 32, 64, 64), (7, 13, 64, 64), (3, 70, 32, 16), (5, 9, 24, 10),
+          (3, 70, 33, 17), (2, 1, 64, 64)]
 
 
 @pytest.fixture
@@ -107,6 +109,24 @@ def test_k4_repeats_bit_for_bit(cuda):
     second = E.launch_k4(*primals, *tangents, r_cutoff=R_CUTOFF)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_k5_repeats_bit_for_bit(cuda):
+    # Every sum runs in a fixed order, with no atomics; at this shape every
+    # product takes the register-tiled path.
+    primals, tangents, cots = _inputs(3, 70, 32, 16, torch.float32, cuda)
+    first = E.launch_k5(*primals, *tangents, *cots, r_cutoff=R_CUTOFF)
+    second = E.launch_k5(*primals, *tangents, *cots, r_cutoff=R_CUTOFF)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k5_does_not_spill(cuda, dtype):
+    name = 'egnn_kernelI%sE' % ('f' if dtype == torch.float32 else 'd')
+    (ptxas,) = [v for k, v in E.ptxas_report().items() if name in k]
+    assert ptxas['spill_store_bytes'] == 0, ptxas
+    assert ptxas['spill_load_bytes'] == 0, ptxas
 
 
 @pytest.mark.parametrize('tangent', [False, True], ids=['k3', 'k4'])

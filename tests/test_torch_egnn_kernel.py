@@ -176,3 +176,15 @@ def test_byte_and_operation_counts_at_bench_shape():
     assert E.k3_ops(256, 32, 64, 64) > 2 * 3 * 4096 * pairs
     assert E.k4_ops(256, 32, 64, 64) > 2 * 6 * 4096 * pairs
     assert E.k5_ops(256, 32, 64, 64) > 2 * 18 * 4096 * pairs
+
+
+@pytest.mark.parametrize('F, D, tiled', [(64, 64, 9), (24, 10, 6),
+                                         (33, 17, 0)])
+def test_k5_product_paths(F, D, tiled):
+    paths = E.k5_product_paths(F, D)
+    assert len(paths) == 9
+    assert list(paths.values()).count('tiled') == tiled
+    if tiled == 6:
+        # The products over D (W_e's) are scalar, the others tiled.
+        assert {k for k, v in paths.items() if v == 'scalar'} == {
+            'pre = W_e emb', 'grad W_e', 'grad emb'}

@@ -24,13 +24,26 @@
 // that fits). Between two __syncthreads() every thread loops over its
 // share of one phase's work, and all state that crosses a barrier lives in
 // shared memory (or, when shared memory is too small, in device memory
-// through the same pointers). Products: each thread computes PM = 4 pairs
-// of one output column, so one load of a weight serves four pairs; the
-// weight matrices are stored with rows padded by one element, so the 32
-// threads of a warp read 32 different banks. The eleven weight gradients
-// are summed per block (one frame) into `partials`, then reduce_partials
-// sums them over the frames in a fixed order. Per-frame gradients (a_i,
-// a_j, dist and their tangents) are written by the block that owns the
+// through the same pointers). Each tile runs nine products: three of the
+// K4 recompute (mm_abt), three cotangents (mm_ab2), three weight gradients
+// (mm_atb2). They are register-tiled where the widths they walk are
+// multiples of 4 and, for mm_abt and mm_ab2, the weights sit in shared
+// memory: a thread owns 2 pairs by 4 output columns, for the primal and
+// the tangent, or a 4 x 4 block of a weight gradient, and walks the inner
+// dimension 4 elements at a time in 16-byte loads, each of which feeds 8
+// multiply-adds in float32 (4 in float64); each output keeps the scalar
+// path's order of summation. The weight rows in shared memory are then
+// padded to K + 4 elements (weight_ld): they start on 16 bytes, and the 8
+// lanes of a quarter-warp that read 8 consecutive rows hit distinct banks
+// (float32, K a multiple of 8). Otherwise (a width not a multiple of 4, or
+// the weights in device memory) a product takes the scalar path: each
+// thread computes PM = 4 pairs of one output column, so one load of a
+// weight serves four pairs, on weight rows padded by one element, so the 32
+// threads of a warp read 32 different banks. Each helper picks its path at
+// its top, from the widths. The eleven weight gradients are summed per
+// block (one frame) into `partials`, then reduce_partials sums them over
+// the frames in a fixed order. Per-frame gradients (a_i, a_j, dist and
+// their tangents) are written by the block that owns the
 // frame, with no atomics.
 //
 // C interface (bound with ctypes): egnn_k3/k4/k5(dtype, device, inputs,
@@ -45,6 +58,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int PM = 4;  // pairs per thread in a product
+constexpr int TP = 2;  // pairs per thread in a register-tiled K5 product
 constexpr double kPi = 3.14159265358979323846;
 
 __device__ __forceinline__ float d_exp(float x) { return expf(x); }
@@ -438,6 +452,23 @@ struct GradOffsets {
   }
 };
 
+// Leading dimension of a K5 weight matrix with rows of K elements in shared
+// memory. K + 4 where K is a multiple of 4: rows start on 16 bytes for the
+// register-tiled products, and in float32 the 8 lanes of a quarter-warp
+// that read 8 consecutive rows hit distinct groups of 4 banks (where K is a
+// multiple of 8; two rows share a group otherwise). Else K + 1: the 32
+// lanes of the scalar products, reading 32 rows, hit 32 banks.
+__host__ __device__ constexpr int weight_ld(int K) {
+  return K % 4 ? K + 1 : K + 4;
+}
+
+// Whether a product over weights W with rows of K elements, leading
+// dimension ldw, takes the register-tiled path: W padded in shared memory
+// by weight_ld (weights in device memory have ldw == K).
+__device__ __forceinline__ bool tiled_weights(int K, int ldw) {
+  return K % 4 == 0 && ldw == weight_ld(K);
+}
+
 // K5's shared-memory layout, in elements of T; the host sizes the launch
 // with the same arithmetic.
 struct Layout {
@@ -456,9 +487,9 @@ struct Layout {
       at += (size + 3) & ~3;  // keep every array 16-byte aligned
       return start;
     };
-    we = take(w_smem ? F * (D + 1) : 0);
-    wm2 = take(w_smem ? F * (F + 1) : 0);
-    wx1 = take(w_smem ? F * (F + 1) : 0);
+    we = take(w_smem ? F * weight_ld(D) : 0);
+    wm2 = take(w_smem ? F * weight_ld(F) : 0);
+    wx1 = take(w_smem ? F * weight_ld(F) : 0);
     mu = take(D);
     gam = take(D);
     b1 = take(F);
@@ -487,6 +518,69 @@ struct Layout {
   }
 };
 
+// Four consecutive elements of shared memory, 16-byte aligned: one 16-byte
+// load in float32, two in float64.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int h = 0; h < 4; h += V) {
+    T w[V];
+    load16(p + h, w);
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[h + q] = w[q];
+  }
+}
+
+// mm_abt register-tiled, for N and K multiples of 4 and W padded in shared
+// memory: each thread owns TP pairs by the 4 columns f = g + c N/4, for A
+// and A2. Per 4 k, 16-byte loads of its 4 weight rows W[f][k..] and of
+// A[p][k..], A2[p][k..] (broadcasts) feed 64 multiply-adds. The lanes take
+// consecutive g, so a quarter-warp reads 8 consecutive rows, which
+// weight_ld puts in distinct bank groups. Each output sums over k in order,
+// as the scalar path does.
+template <typename T, typename Epi>
+__device__ __forceinline__ void mm_abt_tiled(int pt, int N, int K, const T* A,
+                                             const T* A2, const T* W, int ldw,
+                                             Epi epi) {
+  const int ng = N / 4;
+  const int items = (pt / TP) * ng;
+  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+    const int g = idx % ng;
+    const int p0 = (idx / ng) * TP;
+    T acc[TP][4], acc2[TP][4];
+#pragma unroll
+    for (int m = 0; m < TP; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] = acc2[m][c] = T(0);
+    for (int k = 0; k < K; k += 4) {
+      T a[TP][4], a2[TP][4];
+#pragma unroll
+      for (int m = 0; m < TP; ++m) {
+        load4(A + (p0 + m) * K + k, a[m]);
+        load4(A2 + (p0 + m) * K + k, a2[m]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        T w[4];
+        load4(W + (g + c * ng) * ldw + k, w);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int m = 0; m < TP; ++m) {
+            acc[m][c] += a[m][q] * w[q];
+            acc2[m][c] += a2[m][q] * w[q];
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < TP; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        epi(p0 + m, g + c * ng, acc[m][c], acc2[m][c]);
+  }
+}
+
 // out(p, f) for p < pt, f < N: acc = sum_k A[p][k] W[f][k] (A W^T), and
 // acc2 the same product of A2 (the tangent) on the same weight loads;
 // epi(p, f, acc, acc2) consumes them.
@@ -494,6 +588,10 @@ template <typename T, typename Epi>
 __device__ __forceinline__ void mm_abt(int pt, int N, int K, const T* A,
                                        const T* A2, const T* W, int ldw,
                                        Epi epi) {
+  if (tiled_weights(K, ldw) && N % 4 == 0) {
+    mm_abt_tiled<T>(pt, N, K, A, A2, W, ldw, epi);
+    return;
+  }
   const int items = (pt / PM) * N;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
     const int f = idx % N;
@@ -512,11 +610,61 @@ __device__ __forceinline__ void mm_abt(int pt, int N, int K, const T* A,
   }
 }
 
+// mm_ab2 register-tiled, for K and N multiples of 4 and W padded in shared
+// memory: each thread owns TP pairs by 4 consecutive columns k0.., for A and
+// A2. Per 4 f, four 16-byte loads of W[f][k0..] (consecutive across lanes)
+// and 2 TP of A[p][f..], A2[p][f..] (broadcasts) feed 64 multiply-adds.
+// Each output sums over f in order, as the scalar path does.
+template <typename T, typename Epi>
+__device__ __forceinline__ void mm_ab2_tiled(int pt, int K, int N, const T* A,
+                                             const T* A2, const T* W, int ldw,
+                                             Epi epi) {
+  const int kb = K / 4;
+  const int items = (pt / TP) * kb;
+  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+    const int k0 = (idx % kb) * 4;
+    const int p0 = (idx / kb) * TP;
+    T acc[TP][4], acc2[TP][4];
+#pragma unroll
+    for (int m = 0; m < TP; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] = acc2[m][c] = T(0);
+    for (int f = 0; f < N; f += 4) {
+      T a[TP][4], a2[TP][4];
+#pragma unroll
+      for (int m = 0; m < TP; ++m) {
+        load4(A + (p0 + m) * N + f, a[m]);
+        load4(A2 + (p0 + m) * N + f, a2[m]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        T w[4];
+        load4(W + (f + q) * ldw + k0, w);
+#pragma unroll
+        for (int m = 0; m < TP; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[m][c] += a[m][q] * w[c];
+            acc2[m][c] += a2[m][q] * w[c];
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < TP; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) epi(p0 + m, k0 + c, acc[m][c], acc2[m][c]);
+  }
+}
+
 // out(p, k) for p < pt, k < K: acc = sum_f A[p][f] W[f][k] (A W), twice.
 template <typename T, typename Epi>
 __device__ __forceinline__ void mm_ab2(int pt, int K, int N, const T* A,
                                        const T* A2, const T* W, int ldw,
                                        Epi epi) {
+  if (tiled_weights(K, ldw) && N % 4 == 0) {
+    mm_ab2_tiled<T>(pt, K, N, A, A2, W, ldw, epi);
+    return;
+  }
   const int items = (pt / PM) * K;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
     const int k = idx % K;
@@ -534,12 +682,56 @@ __device__ __forceinline__ void mm_ab2(int pt, int K, int N, const T* A,
   }
 }
 
+// mm_atb2 register-tiled, for N and K multiples of 4: each thread owns a
+// 4 x 4 block of G (rows f0.., columns k0..); per pair, 16-byte loads of
+// A1[p][f0..], A2[p][f0..], B1[p][k0..] and B2[p][k0..] feed 32
+// multiply-adds. The lanes of a warp share f0 and take consecutive k0, so
+// the A loads are broadcasts. Each output sums over p in order, as the
+// scalar path does.
+template <typename T>
+__device__ __forceinline__ void mm_atb2_tiled(int pt, int N, int K,
+                                              const T* A1, const T* B1,
+                                              const T* A2, const T* B2,
+                                              T* G) {
+  const int kb = K / 4;
+  const int items = (N / 4) * kb;
+  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+    const int k0 = (idx % kb) * 4;
+    const int f0 = (idx / kb) * 4;
+    T acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
+    for (int p = 0; p < pt; ++p) {
+      T a1[4], a2[4], b1[4], b2[4];
+      load4(A1 + p * N + f0, a1);
+      load4(A2 + p * N + f0, a2);
+      load4(B1 + p * K + k0, b1);
+      load4(B2 + p * K + k0, b2);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] += a1[r] * b1[c] + a2[r] * b2[c];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) G[(f0 + r) * K + k0 + c] += acc[r][c];
+  }
+}
+
 // G[f][k] += sum_p A1[p][f] B1[p][k] + A2[p][f] B2[p][k] for f < N, k < K
 // (A^T B, the weight gradients); each thread owns PM rows of one column.
 template <typename T>
 __device__ __forceinline__ void mm_atb2(int pt, int N, int K, const T* A1,
                                         const T* B1, const T* A2,
                                         const T* B2, T* G) {
+  if (N % 4 == 0 && K % 4 == 0) {
+    mm_atb2_tiled<T>(pt, N, K, A1, B1, A2, B2, G);
+    return;
+  }
   const int items = (N / PM) * K;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
     const int k = idx % K;
@@ -584,16 +776,16 @@ egnn_kernel(Args<T> a) {
   int ldwe = D, ldwm2 = F, ldwx1 = F;
   if (a.w_smem) {
     for (int e = tid; e < F * D; e += nt)
-      sm[L.we + (e / D) * (D + 1) + e % D] = a.w_e[e];
+      sm[L.we + (e / D) * weight_ld(D) + e % D] = a.w_e[e];
     for (int e = tid; e < F * F; e += nt) {
-      sm[L.wm2 + (e / F) * (F + 1) + e % F] = a.w_m2[e];
-      sm[L.wx1 + (e / F) * (F + 1) + e % F] = a.w_x1[e];
+      sm[L.wm2 + (e / F) * weight_ld(F) + e % F] = a.w_m2[e];
+      sm[L.wx1 + (e / F) * weight_ld(F) + e % F] = a.w_x1[e];
     }
     We = sm + L.we;
     Wm2 = sm + L.wm2;
     Wx1 = sm + L.wx1;
-    ldwe = D + 1;
-    ldwm2 = ldwx1 = F + 1;
+    ldwe = weight_ld(D);
+    ldwm2 = ldwx1 = weight_ld(F);
   }
   T* s_mu = sm + L.mu;
   T* s_gam = sm + L.gam;

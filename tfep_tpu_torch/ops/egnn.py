@@ -36,10 +36,13 @@ blocks load the weights once, then their warps walk the rows.
 
 K5 (``egnn_kernel``): one block per frame ``b`` walks the receiver rows
 ``i`` and, inside a row, tiles of up to 32 senders. The three weight
-matrices (padded by one column against bank conflicts) and every per-pair
-intermediate of a tile stay in shared memory; each thread of a product
-computes four pairs of one output feature. With one block per frame, the
-sums over ``i`` (``grad a_j``) stay inside the block, with no atomics. K5
+matrices (rows padded against bank conflicts) and every per-pair
+intermediate of a tile stay in shared memory. Where the widths are
+multiples of 4 (:func:`k5_product_paths`), a product is register-tiled:
+each thread owns a small block of outputs and reads its operands in
+16-byte loads; otherwise each thread computes four pairs of one output
+feature. With one block per frame, the sums over ``i`` (``grad a_j``)
+stay inside the block, with no atomics. K5
 recomputes the K4 chain of a tile, then runs its VJP; the eleven weight
 gradients are summed per block into scratch and reduced over the frames
 by a second kernel, in a fixed order (deterministic). Where shared memory
@@ -86,7 +89,7 @@ __all__ = ['egnn_pairwise', 'egnn_pairwise_jvp', 'pairwise_reference',
            'pairwise_jvp_reference', 'pairwise_jvp_backward_reference',
            'LAUNCHES', 'launch_k3', 'launch_k4', 'launch_k5', 'build',
            'forward_config', 'ptxas_report', 'k3_bytes', 'k4_bytes', 'k5_bytes', 'k3_ops',
-           'k4_ops', 'k5_ops', 'n_weight_elements']
+           'k4_ops', 'k5_ops', 'k5_product_paths', 'n_weight_elements']
 
 #: Names of the eleven weight arguments, in argument order.
 WEIGHTS = ('mu', 'log_gammas', 'w_e', 'b1', 'w_m2', 'b_m2', 'w_att',
@@ -150,6 +153,28 @@ def k5_ops(B: int, n: int, F: int, D: int) -> int:
     per_pair = (k4_ops(1, 1, F, D) + 8 * (F * D + 2 * F * F) + 82 * D
                 + 102 * F + 22)
     return B * n * n * per_pair + B * n_weight_elements(F, D)
+
+
+#: K5's nine products in the order the kernel runs them, with the widths
+#: each one walks: three of the K4 recompute, then per weight its gradient
+#: and the cotangent through it.
+K5_PRODUCTS = (('pre = W_e emb', 'FD'), ('m1 = W_m2 s', 'F'),
+               ('z1 = W_x1 msg', 'F'), ('grad W_x1', 'F'), ('grad msg', 'F'),
+               ('grad W_m2', 'F'), ('grad s', 'F'), ('grad W_e', 'FD'),
+               ('grad emb', 'FD'))
+
+
+def k5_product_paths(F: int, D: int) -> dict:
+    """The path each of K5's products takes in ``csrc/egnn.cu``: ``'tiled'``
+    (register-tiled on 16-byte loads) where the widths it walks are
+    multiples of 4 elements, else ``'scalar'``. This holds with the weights
+    in shared memory, where the kernel's ``configure`` keeps them unless no
+    tile fits with them (always in float32 up to F = D = 64); with the
+    weights in device memory, the products over them (all but the
+    ``'grad W_*'`` ones) take the scalar path."""
+    widths = {'F': F, 'D': D}
+    return {name: 'tiled' if all(widths[w] % 4 == 0 for w in walks)
+            else 'scalar' for name, walks in K5_PRODUCTS}
 
 
 # =============================================================================
