@@ -29,7 +29,9 @@ Phases, each of which passes or exits non-zero:
    F=D=64), at a ragged shape with pairs beyond the cutoff, at F=24, D=10
    and at n=70 (three sender tiles, the last one partial; F=33, D=17), with
    the path (register-tiled or scalar) each of K5's products takes there,
-   and K5's registers and spills (the phase fails if it spills).
+   and K5's registers, spills (the phase fails if it spills) and launch
+   configuration (sender tile, weights and gradient sums in shared or
+   device memory).
 6. CNF slice: ``benchmarks/cnf_bench.py``'s configuration with
    ``pairwise='fused'`` (32 atoms, EGNN dynamics of 4 layers at width 64,
    rk4 with 8 steps, one Hutchinson probe, regularization, checkpointed
@@ -558,13 +560,19 @@ def egnn_kernel_phase(device):
     names = ('a_i', 'a_j', 'dist') + E.WEIGHTS + ('da_i', 'da_j', 'dd')
     errors = {}
     ptxas = E.ptxas_report()
-    for dtype in ('float', 'double'):
+    for dtype, torch_dtype in (('float', torch.float32),
+                               ('double', torch.float64)):
         (k5,) = [v for k, v in ptxas.items()
                  if f'egnn_kernelI{dtype[0]}E' in k]
+        cfg = E.k5_config(torch_dtype, CNF_FEAT, CNF_FEAT, device)
         say(f'  K5 egnn_kernel<{dtype}>: {k5["registers"]} registers, '
             f'{k5["spill_store_bytes"]} bytes of spill stores, '
             f'{k5["spill_load_bytes"]} of spill loads, {k5["stack_bytes"]} '
-            'bytes of stack per thread (ptxas)')
+            'bytes of stack per thread (ptxas); at F=D=64 a sender tile of '
+            f'{cfg["pt"]} pairs, weights in '
+            f'{"shared" if cfg["w_smem"] else "device"} memory, gradient '
+            f'sums in {"shared" if cfg["g_smem"] else "device"} memory, '
+            f'{cfg["smem_bytes"]} bytes of shared memory per block')
         if k5['spill_store_bytes'] or k5['spill_load_bytes']:
             raise AssertionError(f'K5 egnn_kernel<{dtype}> spills')
     say(f'  tolerances: forward and tangent {EGNN_FORWARD_TOL:g}, '

@@ -28,9 +28,11 @@ TOLERANCES = {torch.float32: (1e-4, 1e-3), torch.float64: (1e-12, 1e-10)}
 # The bench shape; ragged ones; three sender tiles with a partial last one,
 # F and D multiples of 4 (every K5 product register-tiled) and not (every
 # K5 product scalar); F a multiple of 4 and D not (K5's products over D
-# scalar, the others tiled); a single atom, every pair masked.
+# scalar, the others tiled); a single atom, every pair masked; n not a
+# multiple of K5's sender tile and F not a multiple of 8, so that masked
+# pairs meet an uneven split of the features over K5's threads.
 SHAPES = [(256, 32, 64, 64), (7, 13, 64, 64), (3, 70, 32, 16), (5, 9, 24, 10),
-          (3, 70, 33, 17), (2, 1, 64, 64)]
+          (3, 70, 33, 17), (2, 1, 64, 64), (4, 37, 20, 12)]
 
 
 @pytest.fixture
@@ -127,6 +129,14 @@ def test_k5_does_not_spill(cuda, dtype):
     (ptxas,) = [v for k, v in E.ptxas_report().items() if name in k]
     assert ptxas['spill_store_bytes'] == 0, ptxas
     assert ptxas['spill_load_bytes'] == 0, ptxas
+
+
+def test_k5_launch_config_at_the_bench_shape(cuda):
+    # The per-phase scratch must not push K5 off its widest configuration:
+    # a sender tile of 32 pairs, the weights and the weight-gradient sums
+    # in shared memory (B=256, n=32, F=D=64, float32).
+    cfg = E.k5_config(torch.float32, 64, 64)
+    assert (cfg['pt'], cfg['w_smem'], cfg['g_smem']) == (32, True, True), cfg
 
 
 @pytest.mark.parametrize('tangent', [False, True], ids=['k3', 'k4'])

@@ -24,7 +24,16 @@
 // that fits). Between two __syncthreads() every thread loops over its
 // share of one phase's work, and all state that crosses a barrier lives in
 // shared memory (or, when shared memory is too small, in device memory
-// through the same pointers). Each tile runs nine products: three of the
+// through the same pointers). The phases between the products run on all
+// threads, each sum in an order fixed by the code: a sum over a pair's
+// features (or k) takes 256 / PT threads per pair, each over a fixed
+// subset of the row rotated by the pair, so that the lanes of a warp read
+// distinct banks (pair_partials), then one thread per pair combines them
+// (pair_sums); elementwise work and the sums over pairs per feature take
+// 256 / F threads per column, each over a fixed run of pairs
+// (column_runs), combined in the next phase (column_sum). The cutoff's
+// switching terms (cos and sin of the distance) are computed once per pair,
+// at the tile's start. Each tile runs nine products: three of the
 // K4 recompute (mm_abt), three cotangents (mm_ab2), three weight gradients
 // (mm_atb2). They are register-tiled where the widths they walk are
 // multiples of 4 and, for mm_abt and mm_ab2, the weights sit in shared
@@ -49,7 +58,7 @@
 // C interface (bound with ctypes): egnn_k3/k4/k5(dtype, device, inputs,
 // outputs, scratch, B, n, F, D, r_cutoff, stream) return 0, a CUDA error
 // code, or -1 when no block configuration fits on the card;
-// egnn_fwd_info reports the forward kernel's launch configuration.
+// egnn_fwd_info and egnn_k5_info report the launch configurations.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -68,6 +77,12 @@ __device__ __forceinline__ double d_sin(double x) { return sin(x); }
 __device__ __forceinline__ float d_cos(float x) { return cosf(x); }
 __device__ __forceinline__ double d_cos(double x) { return cos(x); }
 __device__ __forceinline__ float d_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ void d_sincos(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ void d_sincos(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
 __device__ __forceinline__ double d_tanh(double x) { return tanh(x); }
 
 template <typename T>
@@ -478,8 +493,10 @@ struct Layout {
   int emb, demb;                                // [PT][D]
   int pre, dpre, s, ds, m1, dm1, ms, dms, msg, dmsg, z1, dz1;  // [PT][F]
   int sc;                                       // per-pair scalars
+  int red, red_ld;                              // kRed partial-sum slots
   int total;
-  static constexpr int kScalars = 12;
+  static constexpr int kScalars = 15;
+  static constexpr int kRed = 4;
   __host__ __device__ Layout(int F, int D, int pt, int w_smem, int g_smem) {
     int at = 0;
     auto take = [&at](int size) {
@@ -514,6 +531,9 @@ struct Layout {
     z1 = take(pt * F);
     dz1 = take(pt * F);
     sc = take(kScalars * pt);
+    red_ld = kThreads > F ? kThreads : F;  // partials of a phase's sum
+    red_ld = red_ld > D ? red_ld : D;
+    red = take(kRed * red_ld);
     total = at;
   }
 };
@@ -758,6 +778,71 @@ __device__ __forceinline__ void mm_atb2(int pt, int N, int K, const T* A1,
   }
 }
 
+// Sums over each pair's row of `len` elements (features, or k), on all
+// threads: nt / pt threads per pair, thread (p, h) = (tid % pt, tid / pt)
+// taking the elements g = h, h + nt/pt, ... in order, rotated by the pair
+// (f = g + p max(1, 32/pt), modulo len), so that the lanes of a warp,
+// which hold consecutive pairs, read distinct banks of the rows (float32,
+// len a multiple of 32; at most a few lanes share a bank otherwise).
+// term(p, f, acc) adds element (p, f)'s Q terms; the partials go to
+// red[q * ld + h * pt + p], and pair_sums combines them after a barrier.
+template <typename T, int Q, typename Term>
+__device__ __forceinline__ void pair_partials(int pt, int len, T* red,
+                                              int ld, Term term) {
+  const int tpp = blockDim.x / pt;
+  const int p = threadIdx.x % pt, h = threadIdx.x / pt;
+  const int rot = p * (pt < 32 ? 32 / pt : 1) % len;
+  T acc[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) acc[q] = T(0);
+  for (int g = h; g < len; g += tpp) {
+    const int f = g + rot < len ? g + rot : g + rot - len;
+    term(p, f, acc);
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) red[q * ld + h * pt + p] = acc[q];
+}
+
+// Pair p's Q sums from pair_partials, over h in order.
+template <typename T, int Q>
+__device__ __forceinline__ void pair_sums(int pt, const T* red, int ld,
+                                          int p, T (&sum)[Q]) {
+  const int tpp = blockDim.x / pt;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    sum[q] = T(0);
+    for (int h = 0; h < tpp; ++h) sum[q] += red[q * ld + h * pt + p];
+  }
+}
+
+// Work over a tile's elements by columns (features, or k), on all
+// threads: runs = max(1, nt / cols) threads per column, thread idx taking
+// column c = idx % cols and the pairs p0 <= p < p1 of run idx / cols, in
+// order (the lanes of a warp take consecutive columns: distinct banks).
+// body(idx, c, p0, p1); a sum over pairs per column stores its partial at
+// red[q * ld + idx], and column_sum combines them after a barrier.
+template <typename Body>
+__device__ __forceinline__ void column_runs(int pt, int cols, Body body) {
+  const int nt = blockDim.x;
+  const int runs = cols < nt ? nt / cols : 1;
+  const int len = (pt + runs - 1) / runs;
+  for (int idx = threadIdx.x; idx < runs * cols; idx += nt) {
+    const int start = idx / cols * len;
+    const int p0 = start < pt ? start : pt;
+    const int p1 = start + len < pt ? start + len : pt;
+    body(idx, idx % cols, p0, p1);
+  }
+}
+
+// Column c's sum from column_runs, over the runs in order.
+template <typename T>
+__device__ __forceinline__ T column_sum(int cols, const T* red, int c) {
+  const int runs = cols < (int)blockDim.x ? blockDim.x / cols : 1;
+  T sum = T(0);
+  for (int r = 0; r < runs; ++r) sum += red[r * cols + c];
+  return sum;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 egnn_kernel(Args<T> a) {
@@ -834,6 +919,11 @@ egnn_kernel(Args<T> a) {
   T* sgu = sgq + pt;           // K5: cotangent of the magnitude logit
   T* sgdv = sgu + pt;          // K5: cotangent of dv
   T* sgv = sgdv + pt;          // K5: cotangent of the attention logit
+  T* sS = sgv + pt;            // cutoff switch S(d) = (cos(c d) + 1) / 2
+  T* sS1 = sS + pt;            // S'(d)
+  T* sS2 = sS1 + pt;           // S''(d)
+  T* red = sm + L.red;         // partial sums
+  const int ld = L.red_ld;
 
   // Zero this frame's accumulated outputs and the gradient sums.
   const size_t node0 = (size_t)b * n * F;
@@ -861,23 +951,25 @@ egnn_kernel(Args<T> a) {
         sd[p] = d;
         smask[p] = (valid && i != j && d <= rc) ? T(1) : T(0);
         sdd[p] = valid ? a.dd[pair0 + i * n + j] : T(0);
+        const bool inside = d <= rc;
+        T sn, cs;
+        d_sincos(c * d, &sn, &cs);
+        sS[p] = inside ? T(0.5) * cs + T(0.5) : T(0);
+        sS1[p] = inside ? T(-0.5) * c * sn : T(0);
+        sS2[p] = inside ? T(-0.5) * c * c * cs : T(0);
       }
       __syncthreads();
 
-      // Radial expansion (and its tangent, d emb/d dist times dd).
+      // Radial expansion (and its tangent, d emb/d dist times dd), on the
+      // pair's switching terms.
       for (int e = tid; e < pt * D; e += nt) {
         const int p = e / D, k = e % D;
-        const T d = sd[p];
-        const T r = d - s_mu[k];
+        const T r = sd[p] - s_mu[k];
         const T g = s_gam[k];
         const T G = d_exp(-g * r * r);
-        const bool inside = d <= rc;
-        const T S = inside ? T(0.5) * d_cos(c * d) + T(0.5) : T(0);
+        const T S = sS[p];
         emb[e] = G * S;
-        {
-          const T S1 = inside ? T(-0.5) * c * d_sin(c * d) : T(0);
-          demb[e] = G * (S1 - T(2) * g * r * S) * sdd[p];
-        }
+        demb[e] = G * (sS1[p] - T(2) * g * r * S) * sdd[p];
       }
       __syncthreads();
 
@@ -918,13 +1010,17 @@ egnn_kernel(Args<T> a) {
       }
       __syncthreads();
 
-      // Attention per pair.
+      // Attention per pair: its logit and tangent summed over the features
+      // on all threads, then combined per pair.
+      pair_partials<T, 2>(pt, F, red, ld, [&](int p, int f, T(&acc)[2]) {
+        acc[0] += ms[p * F + f] * s_watt[f];
+        acc[1] += dms[p * F + f] * s_watt[f];
+      });
+      __syncthreads();
       for (int p = tid; p < pt; p += nt) {
-        T v = batt, dv = T(0);
-        for (int f = 0; f < F; ++f) {
-          v += ms[p * F + f] * s_watt[f];
-          dv += dms[p * F + f] * s_watt[f];
-        }
+        T sum[2];
+        pair_sums<T, 2>(pt, red, ld, p, sum);
+        const T v = batt + sum[0], dv = sum[1];
         const T att = sigmoid(v);
         satt[p] = att;
         {
@@ -935,17 +1031,11 @@ egnn_kernel(Args<T> a) {
       __syncthreads();
 
       // Masked messages.
-      for (int f = tid; f < F; f += nt) {
-        for (int p = 0; p < pt; ++p) {
-          const T mk = smask[p];
-          const T m = ms[p * F + f] * satt[p] * mk;
-          msg[p * F + f] = m;
-          {
-            const T dm =
-                (dms[p * F + f] * satt[p] + ms[p * F + f] * sdatt[p]) * mk;
-            dmsg[p * F + f] = dm;
-          }
-        }
+      for (int e = tid; e < pt * F; e += nt) {
+        const int p = e / F;
+        const T mk = smask[p], att = satt[p];
+        msg[e] = ms[e] * att * mk;
+        dmsg[e] = (dms[e] * att + ms[e] * sdatt[p]) * mk;
       }
       __syncthreads();
 
@@ -959,18 +1049,20 @@ egnn_kernel(Args<T> a) {
       }
       __syncthreads();
 
-      // Magnitudes: t = tanh(w_x2 . silu(z1)), q its tangent's logit.
+      // Magnitudes: t = tanh(w_x2 . silu(z1)), q its tangent's logit;
+      // summed over the features on all threads, then combined per pair.
+      pair_partials<T, 2>(pt, F, red, ld, [&](int p, int f, T(&acc)[2]) {
+        const T z = z1[p * F + f];
+        const T sg = sigmoid(z);
+        acc[0] += z * sg * s_wx2[f];
+        acc[1] += sg * (T(1) + z * (T(1) - sg)) * dz1[p * F + f] * s_wx2[f];
+      });
+      __syncthreads();
       for (int p = tid; p < pt; p += nt) {
-        T u = T(0), q = T(0);
-        for (int f = 0; f < F; ++f) {
-          const T z = z1[p * F + f];
-          const T sg = sigmoid(z);
-          u += z * sg * s_wx2[f];
-          q += sg * (T(1) + z * (T(1) - sg)) * dz1[p * F + f] * s_wx2[f];
-        }
-        const T t = d_tanh(u);
-        st[p] = t;
-        sq[p] = q;
+        T sum[2];
+        pair_sums<T, 2>(pt, red, ld, p, sum);
+        st[p] = d_tanh(sum[0]);
+        sq[p] = sum[1];
       }
       __syncthreads();
       {
@@ -988,11 +1080,12 @@ egnn_kernel(Args<T> a) {
         }
         __syncthreads();
 
-        // z1, dz1 -> their cotangents (in place); sums for w_x2 and b_x1.
-        for (int f = tid; f < F; f += nt) {
+        // z1, dz1 -> their cotangents (in place); sums for w_x2 and b_x1
+        // over each column's runs of pairs, combined in the next phase.
+        column_runs(pt, F, [&](int idx, int f, int p0, int p1) {
           const T w = s_wx2[f];
           T gw = T(0), gb = T(0);
-          for (int p = 0; p < pt; ++p) {
+          for (int p = p0; p < p1; ++p) {
             const T z = z1[p * F + f];
             const T dz = dz1[p * F + f];
             const T sg = sigmoid(z);
@@ -1005,12 +1098,16 @@ egnn_kernel(Args<T> a) {
             z1[p * F + f] = gz;
             dz1[p * F + f] = gq * w * s1;
           }
-          gacc[GO.w_x2 + f] += gw;
-          gacc[GO.b_x1 + f] += gb;
-        }
+          red[idx] = gw;
+          red[ld + idx] = gb;
+        });
         __syncthreads();
 
-        // grad W_x1 += gdz1^T dmsg + gz1^T msg.
+        // grad W_x1 += gdz1^T dmsg + gz1^T msg; the sums for w_x2, b_x1.
+        for (int e = tid; e < 2 * F; e += nt) {
+          const int q = e / F, f = e % F;
+          gacc[(q ? GO.b_x1 : GO.w_x2) + f] += column_sum(F, red + q * ld, f);
+        }
         mm_atb2<T>(pt, F, F, dz1, dmsg, z1, msg, gacc + GO.w_x1);
         __syncthreads();
 
@@ -1024,53 +1121,62 @@ egnn_kernel(Args<T> a) {
         }
         __syncthreads();
 
-        // Cotangents of the attention logit v and its tangent dv.
+        // Cotangents of the attention logit v and its tangent dv: sums over
+        // the features on all threads, then combined per pair.
+        pair_partials<T, 2>(pt, F, red, ld, [&](int p, int f, T(&acc)[2]) {
+          const int e = p * F + f;
+          acc[0] += dmsg[e] * ms[e];
+          acc[1] += dmsg[e] * dms[e] + msg[e] * ms[e];
+        });
+        __syncthreads();
         for (int p = tid; p < pt; p += nt) {
-          T gdatt = T(0), gatt = T(0);
-          for (int f = 0; f < F; ++f) {
-            const T gdm = dmsg[p * F + f], gm = msg[p * F + f];
-            gdatt += gdm * ms[p * F + f];
-            gatt += gdm * dms[p * F + f] + gm * ms[p * F + f];
-          }
+          T sum[2];
+          pair_sums<T, 2>(pt, red, ld, p, sum);
           const T mk = smask[p], att = satt[p];
           const T sa = att * (T(1) - att);
-          gdatt *= mk;
-          gatt *= mk;
+          const T gdatt = sum[0] * mk;
+          const T gatt = sum[1] * mk;
           sgdv[p] = gdatt * sa;
           sgv[p] = gdatt * sa * (T(1) - T(2) * att) * sdv[p] + gatt * sa;
         }
         __syncthreads();
 
-        // Sums for w_att and b_att; m1, dm1 -> their cotangents (in place).
-        for (int f = tid; f <= F; f += nt) {
-          T acc = T(0);
-          for (int p = 0; p < pt; ++p)
-            acc += f < F ? sgdv[p] * dms[p * F + f] + sgv[p] * ms[p * F + f]
-                         : sgv[p];
-          gacc[f < F ? GO.w_att + f : GO.b_att] += acc;
-        }
-        for (int e = tid; e < pt * F; e += nt) {
-          const int p = e / F, f = e % F;
-          const T mk = smask[p], att = satt[p];
-          const T gdms = mk * att * dmsg[e] + sgdv[p] * s_watt[f];
-          const T gms = mk * (sdatt[p] * dmsg[e] + att * msg[e]) +
-                        sgv[p] * s_watt[f];
-          const T m = m1[e];
-          const T sg = sigmoid(m);
-          const T s1 = sg * (T(1) + m * (T(1) - sg));
-          const T s2 = sg * (T(1) - sg) * (T(2) + m * (T(1) - T(2) * sg));
-          m1[e] = gdms * dm1[e] * s2 + gms * s1;
-          dm1[e] = gdms * s1;
-        }
+        // Sums for w_att and b_att; m1, dm1 -> their cotangents (in place),
+        // and their sums for b_m2; over each column's runs of pairs (b_att
+        // on column 0's), combined in the next phase.
+        column_runs(pt, F, [&](int idx, int f, int p0, int p1) {
+          const T watt = s_watt[f];
+          T gw = T(0), gbm = T(0), gba = T(0);
+          for (int p = p0; p < p1; ++p) {
+            const int e = p * F + f;
+            gw += sgdv[p] * dms[e] + sgv[p] * ms[e];
+            gba += sgv[p];
+            const T mk = smask[p], att = satt[p];
+            const T gdms = mk * att * dmsg[e] + sgdv[p] * watt;
+            const T gms = mk * (sdatt[p] * dmsg[e] + att * msg[e]) +
+                          sgv[p] * watt;
+            const T m = m1[e];
+            const T sg = sigmoid(m);
+            const T s1 = sg * (T(1) + m * (T(1) - sg));
+            const T s2 = sg * (T(1) - sg) * (T(2) + m * (T(1) - T(2) * sg));
+            const T gm = gdms * dm1[e] * s2 + gms * s1;
+            m1[e] = gm;
+            dm1[e] = gdms * s1;
+            gbm += gm;
+          }
+          red[idx] = gw;
+          red[ld + idx] = gbm;
+          if (f == 0) red[2 * ld + idx] = gba;
+        });
         __syncthreads();
 
-        // grad W_m2 += gdm1^T ds + gm1^T s; grad b_m2.
-        mm_atb2<T>(pt, F, F, dm1, ds, m1, s, gacc + GO.w_m2);
-        for (int f = tid; f < F; f += nt) {
-          T acc = T(0);
-          for (int p = 0; p < pt; ++p) acc += m1[p * F + f];
-          gacc[GO.b_m2 + f] += acc;
+        // grad W_m2 += gdm1^T ds + gm1^T s; the sums for w_att, b_att, b_m2.
+        for (int e = tid; e <= 2 * F; e += nt) {
+          const int q = e / F, f = e % F;
+          gacc[(q == 0 ? GO.w_att : q == 1 ? GO.b_m2 : GO.b_att) + f] +=
+              column_sum(F, red + q * ld, f);
         }
+        mm_atb2<T>(pt, F, F, dm1, ds, m1, s, gacc + GO.w_m2);
         __syncthreads();
 
         // Cotangents of s, ds, then of pre, dpre (into s, ds).
@@ -1089,28 +1195,53 @@ egnn_kernel(Args<T> a) {
 
         // Sums into b1, a_i, da_i (this row), a_j, da_j (the tile's senders);
         // grad W_e += gdpre^T demb + gpre^T emb.
-        for (int f = tid; f < F; f += nt) {
+        // Each column's runs of pairs, the sums combined in the next phase;
+        // the senders' sums in device memory four pairs at a time, every
+        // load before any store, so that the loads overlap.
+        column_runs(pt, F, [&](int idx, int f, int p0, int p1) {
           T gp = T(0), gdp = T(0);
-          for (int p = 0; p < pt; ++p) {
-            gp += s[p * F + f];
-            gdp += ds[p * F + f];
+          for (int p4 = p0; p4 < p1; p4 += 4) {
+            T aj[4], daj[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int p = p4 + u;
+              const size_t at = node0 + (size_t)(j0 + p) * F + f;
+              const bool sender = p < p1 && j0 + p < n;
+              aj[u] = sender ? a.g_a_j[at] : T(0);
+              daj[u] = sender ? a.g_da_j[at] : T(0);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int p = p4 + u;
+              if (p < p1) {
+                const int e = p * F + f;
+                gp += s[e];
+                gdp += ds[e];
+                if (j0 + p < n) {
+                  const size_t at = node0 + (size_t)(j0 + p) * F + f;
+                  a.g_a_j[at] = aj[u] + s[e];
+                  a.g_da_j[at] = daj[u] + ds[e];
+                }
+              }
+            }
           }
-          gacc[GO.b1 + f] += gp;
-          a.g_a_i[node0 + i * F + f] += gp;
-          a.g_da_i[node0 + i * F + f] += gdp;
-        }
-        for (int e = tid; e < pt * F; e += nt) {
-          const int p = e / F, f = e % F;
-          const int j = j0 + p;
-          if (j < n) {
-            a.g_a_j[node0 + j * F + f] += s[e];
-            a.g_da_j[node0 + j * F + f] += ds[e];
-          }
-        }
+          red[idx] = gp;
+          red[ld + idx] = gdp;
+        });
         mm_atb2<T>(pt, F, D, ds, demb, s, emb, gacc + GO.w_e);
         __syncthreads();
 
-        // Cotangents of emb and demb (into emb, demb).
+        // Cotangents of emb and demb (into emb, demb); the sums for b1,
+        // a_i, da_i.
+        for (int e = tid; e < 2 * F; e += nt) {
+          const int q = e / F, f = e % F;
+          T* g = q ? a.g_da_i : a.g_a_i;
+          const size_t at = node0 + i * F + f;
+          const T old = g[at];
+          const T gp = column_sum(F, red + q * ld, f);
+          if (q == 0) gacc[GO.b1 + f] += gp;
+          g[at] = old + gp;
+        }
         {
           auto epi = [&](int p, int k, T gemb, T gdemb) {
             emb[p * D + k] = gemb;
@@ -1121,19 +1252,16 @@ egnn_kernel(Args<T> a) {
         __syncthreads();
 
         // The radial chain: sums for mu and log_gammas per k, and each
-        // (pair, k) term of the distance and tangent gradients.
-        for (int k = tid; k < D; k += nt) {
-          const T g = s_gam[k];
+        // (pair, k) term of the distance and tangent gradients; over each
+        // column's runs of pairs, on the pairs' switching terms, the sums
+        // combined in the next phase.
+        column_runs(pt, D, [&](int idx, int k, int p0, int p1) {
+          const T g = s_gam[k], mu = s_mu[k];
           T gmu = T(0), glg = T(0);
-          for (int p = 0; p < pt; ++p) {
-            const T d = sd[p];
-            const T r = d - s_mu[k];
+          for (int p = p0; p < p1; ++p) {
+            const T r = sd[p] - mu;
             const T G = d_exp(-g * r * r);
-            const bool inside = d <= rc;
-            const T cs = d_cos(c * d);
-            const T S = inside ? T(0.5) * cs + T(0.5) : T(0);
-            const T S1 = inside ? T(-0.5) * c * d_sin(c * d) : T(0);
-            const T S2 = inside ? T(-0.5) * c * c * cs : T(0);
+            const T S = sS[p], S1 = sS1[p], S2 = sS2[p];
             const T ep = G * (S1 - T(2) * g * r * S);
             const T gemb = emb[p * D + k], gdemb = demb[p * D + k];
             const T gep = gdemb * sdd[p];
@@ -1149,21 +1277,30 @@ egnn_kernel(Args<T> a) {
             emb[p * D + k] = gemb * ep + gep * dep_dd;
             demb[p * D + k] = gdemb * ep;
           }
-          gacc[GO.mu + k] += gmu;
-          gacc[GO.lg + k] += glg;
-        }
+          red[idx] = gmu;
+          red[ld + idx] = glg;
+        });
         __syncthreads();
 
+        // Distance gradients: sums over k on all threads, then combined
+        // per pair; the sums for mu and log_gammas.
+        for (int e = tid; e < 2 * D; e += nt) {
+          const int q = e / D, k = e % D;
+          gacc[(q ? GO.lg : GO.mu) + k] += column_sum(D, red + q * ld, k);
+        }
+        T* red2 = red + 2 * ld;
+        pair_partials<T, 2>(pt, D, red2, ld, [&](int p, int k, T(&acc)[2]) {
+          acc[0] += emb[p * D + k];
+          acc[1] += demb[p * D + k];
+        });
+        __syncthreads();
         for (int p = tid; p < pt; p += nt) {
           const int j = j0 + p;
           if (j < n) {
-            T gd = T(0), gdd = T(0);
-            for (int k = 0; k < D; ++k) {
-              gd += emb[p * D + k];
-              gdd += demb[p * D + k];
-            }
-            a.g_dist[pair0 + i * n + j] = gd;
-            a.g_dd[pair0 + i * n + j] = gdd;
+            T sum[2];
+            pair_sums<T, 2>(pt, red2, ld, p, sum);
+            a.g_dist[pair0 + i * n + j] = sum[0];
+            a.g_dd[pair0 + i * n + j] = sum[1];
           }
         }
         __syncthreads();
@@ -1330,6 +1467,19 @@ int fwd_info(int dtype, int device, int rows, int F, int D, int* info) {
   return 0;
 }
 
+template <typename T>
+int k5_info(int device, int F, int D, int* info) {
+  Args<T> a = {};
+  size_t bytes = 0;
+  const int status = configure<T>(device, F, D, a, bytes);
+  if (status != 0) return status;
+  info[0] = a.pt;
+  info[1] = a.w_smem;
+  info[2] = a.g_smem;
+  info[3] = (int)bytes;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1366,6 +1516,13 @@ int egnn_fwd_info(int dtype, int tangent, int device, int rows, int F, int D,
                   int* info) {
   if (tangent) return fwd_info<true>(dtype, device, rows, F, D, info);
   return fwd_info<false>(dtype, device, rows, F, D, info);
+}
+
+// K5's launch for widths F, D: info = {sender tile pt, weights in shared
+// memory, gradient sums in shared memory, shared-memory bytes per block}.
+int egnn_k5_info(int dtype, int device, int F, int D, int* info) {
+  if (dtype == 0) return k5_info<float>(device, F, D, info);
+  return k5_info<double>(device, F, D, info);
 }
 
 const char* egnn_error_string(int status) {

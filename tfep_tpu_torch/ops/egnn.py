@@ -413,10 +413,18 @@ def _library():
     # dtype, tangent, device, rows, F, D, four ints out.
     lib.egnn_fwd_info.argtypes = [i32, i32, i32, i32, i32, i32, ptr]
     lib.egnn_fwd_info.restype = i32
+    # dtype, device, F, D, four ints out.
+    lib.egnn_k5_info.argtypes = [i32, i32, i32, i32, ptr]
+    lib.egnn_k5_info.restype = i32
     lib.egnn_error_string.argtypes = [i32]
     lib.egnn_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
+
+
+def _device_index(device) -> int:
+    device = torch.device('cuda') if device is None else torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 def forward_config(dtype, tangent: bool, B: int, n: int, F: int, D: int,
@@ -426,8 +434,7 @@ def forward_config(dtype, tangent: bool, B: int, n: int, F: int, D: int,
     bytes per block and the grid. Launches nothing; registers and spills
     are in :func:`ptxas_report`."""
     lib = _library()
-    device = torch.device('cuda') if device is None else torch.device(device)
-    index = torch.cuda.current_device() if device.index is None else device.index
+    index = _device_index(device)
     info = (ctypes.c_int * 4)()
     status = lib.egnn_fwd_info({torch.float32: 0, torch.float64: 1}[dtype],
                                int(tangent), index, B * n, F, D, info)
@@ -437,6 +444,25 @@ def forward_config(dtype, tangent: bool, B: int, n: int, F: int, D: int,
         raise RuntimeError(lib.egnn_error_string(status).decode())
     return dict(zip(('warps_per_block', 'blocks_per_sm', 'smem_bytes',
                      'grid'), info))
+
+
+def k5_config(dtype, F: int, D: int, device=None) -> dict:
+    """The launch of K5 for widths ``F``, ``D`` on a CUDA card: the
+    sender tile ``pt``, whether the weights (``w_smem``) and the
+    weight-gradient sums (``g_smem``) sit in shared memory, and the
+    shared-memory bytes per block. Launches nothing."""
+    lib = _library()
+    index = _device_index(device)
+    info = (ctypes.c_int * 4)()
+    status = lib.egnn_k5_info({torch.float32: 0, torch.float64: 1}[dtype],
+                              index, F, D, info)
+    if status == _NO_FIT:
+        raise ValueError(f'no K5 block for F={F}, D={D} fits the card.')
+    if status != 0:
+        raise RuntimeError(lib.egnn_error_string(status).decode())
+    cfg = dict(zip(('pt', 'w_smem', 'g_smem', 'smem_bytes'), info))
+    cfg['w_smem'], cfg['g_smem'] = bool(cfg['w_smem']), bool(cfg['g_smem'])
+    return cfg
 
 
 def ptxas_report() -> dict:
