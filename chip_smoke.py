@@ -19,9 +19,11 @@ Phases, each of which passes or exits non-zero:
    batch 4096, AdamW), with random weights from a seed. One no-grad map
    evaluation, the training steps and a forward/inverse round trip. The
    launch counts of K1 and K2 are set to 0 just before and read just after.
-4. Times on the card: each kernel and its plain version, the training
-   step, the map evaluation, peak memory, and a ``torch.profiler``
-   breakdown of the training step by kind of kernel, with its table.
+4. Times on the card: each kernel and its plain version, K2's copy probe
+   (``tfep_tpu_torch/tools/spline_k2_probe.py``: K2's grid, tile and bytes
+   without its arithmetic) in turns with K2, the training step, the map
+   evaluation, peak memory, and a ``torch.profiler`` breakdown of the
+   training step by kind of kernel, with its table.
 5. EGNN kernels: ``nvcc`` builds the CUDA kernels K3 (forward), K4
    (forward and tangent) and K5 (backward of K4) from this checkout while
    phases 2-4 run; each is held against its plain PyTorch version in
@@ -178,22 +180,22 @@ def kernel_resources(device):
     from tfep_tpu_torch.ops import spline as fs
     x, params, *bounds = spline_inputs(False, device, 3)
     consts = fs._constants(x.device, x.dtype, 1e-4, 1e-4)
-    grid = fs._grid(B, F)
-    kernels = fs._kernels()
-    blocks = dict(K=K, BLOCK_B=fs.BLOCK_B, BLOCK_F=fs.BLOCK_F,
-                  num_warps=fs.NUM_WARPS)
     y, dl = torch.empty_like(x), torch.empty_like(x)
-    handles = {'spline_forward': kernels['forward'][grid](
-        x, params, *bounds, consts, y, dl, B, F, **blocks)}
+    forward = fs._kernels()['forward'][fs._grid(B, F)](
+        x, params, *bounds, consts, y, dl, B, F, K=K, BLOCK_B=fs.BLOCK_B,
+        BLOCK_F=fs.BLOCK_F, num_warps=fs.NUM_WARPS)
     gx, gp = torch.empty_like(x), torch.empty_like(params)
-    handles['spline_backward'] = kernels['backward'][grid](
-        x, params, *bounds, consts, y, dl, gx, gp, B, F, **blocks)
+    backward = fs._backward_launch(x, params, bounds, consts, y, dl, gx, gp,
+                                   K, fs.BACKWARD_LAYOUT)
     torch.cuda.synchronize()
-    for name, handle in handles.items():
+    tiles = (f'{fs.BLOCK_B}x{fs.BLOCK_F}, {fs.NUM_WARPS} warps',
+             '{BLOCK_B}x{BLOCK_F}, {num_warps} warps'.format(
+                 **fs.BACKWARD_LAYOUT))
+    for name, handle, tile in (('spline_forward', forward, tiles[0]),
+                               ('spline_backward', backward, tiles[1])):
         say(f'  {name}: {getattr(handle, "n_regs", "not reported")} '
             f'registers, {getattr(handle, "n_spills", "not reported")} '
-            f'spills per thread; block {fs.BLOCK_B}x{fs.BLOCK_F}, '
-            f'{fs.NUM_WARPS} warps')
+            f'spills per thread; block {tile}')
 
 
 def build_slice(device):
@@ -348,6 +350,7 @@ def graph_ms(fn, sets, n, reps):
 
 def timing_phase(device, flow, frames, train_step, smi):
     from tfep_tpu_torch.ops import spline as fs
+    from tfep_tpu_torch.tools import spline_k2_probe as k2_probe
     # Four input sets of 44 MB each, more than the 50 MB L2 cache.
     sets = []
     for seed in range(4):
@@ -363,6 +366,10 @@ def timing_phase(device, flow, frames, train_step, smi):
 
     def k2(x, params, bounds, gy, gl):
         fs.launch_backward(x, params, *bounds, gy, gl, *consts)
+
+    def probe(x, params, bounds, gy, gl):
+        k2_probe.launch_probe(x, params, bounds, gy, gl, K,
+                              fs.BACKWARD_LAYOUT)
 
     def plain_fwd(x, params, bounds, gy, gl):
         with torch.no_grad():
@@ -394,6 +401,19 @@ def timing_phase(device, flow, frames, train_step, smi):
         eager_ms, host_ms = event_ms(kern, 200, sets)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_OPS_PER_S * 1e3
+        if name == 'spline_backward':
+            # K2's copy probe: K2's grid and tile, K2's bytes, no
+            # arithmetic; in turns with K2 (probe, K2, K2, probe).
+            runs = [graph_ms(probe, sets, 64, 5)]
+            k2 = [graph_ms(kern, sets, 64, 5) for _ in range(2)]
+            runs.append(graph_ms(probe, sets, 64, 5))
+            probe_ms = sum(runs) / 2
+            say(f'  spline_backward copy probe (K2\'s grid and tile, '
+                f'K2\'s bytes, no arithmetic): {probe_ms:.5f} ms (runs '
+                f'{runs[0]:.5f}, {runs[1]:.5f}), '
+                f'{100 * bytes_ms / probe_ms:.1f}% of the byte bound; K2 '
+                f'beside it {sum(k2) / 2:.5f} ms, '
+                f'{sum(k2) / 2 / probe_ms:.3f}x the probe; [{smi}]')
         rows.append(dict(name=name, ms=k_ms, plain_ms=p_ms,
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by='bytes' if bytes_ms >= ops_ms

@@ -63,7 +63,11 @@ def _check(actual, expected, tol):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('shape', [(4096, 96, 8), (37, 13, 5)])
+# (B, F, K): the bench shape; ragged tiles; K = 3 and 16 (bins padded to 4
+# and 16 in K2's tile, 16 a full one); F = 97 and 13, neither a multiple
+# of 4 nor of the tile; one row.
+@pytest.mark.parametrize('shape', [(4096, 96, 8), (37, 13, 5), (257, 97, 3),
+                                   (33, 13, 16), (1, 97, 8), (1, 13, 3)])
 @pytest.mark.parametrize('adversarial', [False, True])
 def test_kernels_match_plain_version(cuda, dtype, shape, adversarial):
     B, F, K = shape

@@ -17,19 +17,41 @@ time is the bytes over the card's bandwidth. At the bench shape (B=4096,
 F=96, K=8, float32) K1 moves x, params, the four bound rows, y and dl:
 about 44.0 MB. K2 moves x, params, gy, gl, gx and gparams: about 84.9 MB.
 
-Design. One program owns a ``(BLOCK_B, BLOCK_F)`` tile, one element per
-thread, and walks the K bins in an unrolled ``tl.static_range`` loop, so
-each parameter row is loaded coalesced along F. Unlike the TPU kernels,
+Design of K1. One program owns a ``(BLOCK_B, BLOCK_F)`` tile, one element
+per thread, and walks the K bins in an unrolled ``tl.static_range`` loop,
+so each parameter row is loaded coalesced along F. Unlike the TPU kernels,
 which evaluate every bin in every lane and mask afterwards, a thread
 selects its own bin's width, height, knots and slopes with a running
-``tl.where`` and evaluates the map once (the clamp of ``e`` is kept). In K2
-the TPU kernel's suffix sums over the cumulative offsets become "add this
-element's offset gradient to every bin below its own", written while the
-parameter gradients are streamed out, so no per-bin accumulator stays
-live. There is no feature padding and no batch tiling constraint: ragged B
-and F edges are masked. Triton compiles both kernels at their first launch
-from this source, into ``TRITON_CACHE_DIR`` (default ``build/triton`` of
-the checkout).
+``tl.where`` and evaluates the map once (the clamp of ``e`` is kept).
+
+Design of K2. It is bound by device memory as K1 is, but only if its
+instructions keep up: per element it redoes K1's softmax statistics and
+bin walk and writes 3K+2 gradients. Done pass by pass as K1 is, that
+would load each width and height logit four times and exponentiate it
+three times, load each slope twice, and take about as long in
+instructions as in bytes. So K2 holds an element's 3K+1 parameters in
+registers: its tile is a ``(BLOCK_B, KP, BLOCK_F)`` block, bins on the
+middle axis (KP = K rounded up to a power of two, the padded bins
+masked: logits read as ``-inf``, their gradients not stored), and with
+one element per thread of the tile the bins stay in that thread, so the
+maxima, sums and prefix sums over them need no other thread. Each
+parameter is loaded once, each exponential is taken once and kept for
+the gradients, each softmax sum gives one reciprocal, and one
+``exp(-|z|)`` and one reciprocal per slope give both the softplus (with
+``log1p`` corrected to first order) and the sigmoid of its gradient. The
+element's bin is the number of inner knots at or below it (bin 0 below
+the domain), and its quantities are picked out with masked sums. The TPU
+kernel's suffix sums over the cumulative offsets become "add this
+element's offset gradient to every bin below its own". B and F are not
+specialised, so accesses stay 4-byte: 16-byte ones need four elements a
+thread, whose registers spill. What is left is the access pattern's:
+``tfep_tpu_torch/tools/spline_k2_probe.py`` times K2 beside a copy with
+its grid, tile and bytes.
+
+There is no feature padding and no batch tiling constraint: ragged B and F
+edges are masked. Triton compiles both kernels at their first launch from
+this source, into ``TRITON_CACHE_DIR`` (default ``build/triton`` of the
+checkout).
 
 The wrapper :func:`fused_spline` launches the kernels for CUDA tensors and
 runs :func:`fused_spline_reference`, the plain PyTorch version of the same
@@ -71,15 +93,25 @@ def forward_ops(B: int, F: int, K: int) -> int:
 
 
 def backward_ops(B: int, F: int, K: int) -> int:
-    """Operations K2 does on a (B, F) input with K bins."""
-    return B * F * (89 * K + 145)
+    """Operations K2 does on a (B, F) input with K bins (the K real bins,
+    not the padding of its tile): per bin 10 for the softmax statistics
+    and probabilities, 16 per slope (softplus and sigmoid), 34 for the bin
+    walk and the masked sums that pick the element's bin, 20 for the
+    gradients written, 1 for the slope's offset; per element 125 for the
+    bin's gradients and 34 besides."""
+    return B * F * (81 * K + 159)
 
 
 LAUNCHES = LaunchCounter('forward', 'backward')
 
+# K1's tile.
 BLOCK_B = 4
 BLOCK_F = 32
 NUM_WARPS = 4
+# K2's tile, with as many elements as threads: fewer and the bins would
+# spread over threads, more and a thread would hold several elements'
+# 3K+1 parameters in registers.
+BACKWARD_LAYOUT = dict(BLOCK_B=4, BLOCK_F=32, num_warps=4)
 
 # Compiled kernels, built at the first launch (Triton is imported there).
 _KERNELS = {}
@@ -174,7 +206,7 @@ def _kernels():
     """
     if _KERNELS:
         return _KERNELS
-    global tl, _softplus_tl
+    global tl, _softplus_tl, _slope_tl, _bins_sum
     build = Path(__file__).resolve().parents[2] / 'build'
     os.environ.setdefault('TRITON_CACHE_DIR', str(build / 'triton'))
     os.environ.setdefault('TRITON_HOME', str(build))
@@ -285,29 +317,59 @@ def _kernels():
         tl.store(dl_ptr + xy, dl, mask=m)
 
     @triton.jit
+    def _bins_sum(v):
+        # Sum over the bins (axis 1), kept as an axis of size 1.
+        return tl.expand_dims(tl.sum(v, axis=1), 1)
+
+    @triton.jit
+    def _slope_tl(z, min_slope):
+        # softplus(z) + min_slope and sigmoid(z) from one t = exp(-|z|) and
+        # one r = 1 / (1 + t): softplus = max(z, 0) + log1p(t), with
+        # log1p(t) = log(u) + (t - (u - 1)) / u for u = 1 + t rounded (u - 1
+        # is exact, so the second term restores what the rounding of u
+        # lost; it is t where u rounds to 1). Triton has no log1p.
+        t = tl.exp(-tl.abs(z))
+        u = 1.0 + t
+        r = 1.0 / u
+        s = tl.maximum(z, 0.0) + tl.log(u) + (t - (u - 1.0)) * r + min_slope
+        return s, tl.where(z >= 0.0, r, t * r)
+
+    @triton.jit(do_not_specialize=['B', 'F'])
     def backward_kernel(x_ptr, p_ptr, x0_ptr, xf_ptr, y0_ptr, yf_ptr, c_ptr,
                         gy_ptr, gl_ptr, gx_ptr, gp_ptr, B, F,
-                        K: tl.constexpr, BLOCK_B: tl.constexpr,
-                        BLOCK_F: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-        cols = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
+                        K: tl.constexpr, KP: tl.constexpr,
+                        BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr):
+        # Axes: rows, bins, features. Every tensor is 3-D so that all share
+        # one layout; Triton orders the axes features, rows, bins, so with
+        # BLOCK_B * BLOCK_F threads a thread holds all bins of its element.
+        rows = (tl.program_id(0) * BLOCK_B
+                + tl.arange(0, BLOCK_B))[:, None, None]
+        cols = (tl.program_id(1) * BLOCK_F
+                + tl.arange(0, BLOCK_F))[None, None, :]
+        kk = tl.arange(0, KP)[None, :, None]
         cmask = cols < F
-        m = (rows < B)[:, None] & cmask[None, :]
-        xy = rows[:, None] * F + cols[None, :]
-        poff = rows[:, None] * ((3 * K + 1) * F) + cols[None, :]
-        pb = p_ptr + poff
-        gb = gp_ptr + poff
+        m = (rows < B) & cmask
+        mk = m & (kk < K)
+        xy = rows * F + cols
+        poff = rows * ((3 * K + 1) * F) + cols
+        pb = p_ptr + poff + kk * F
+        gb = gp_ptr + poff + kk * F
         min_bin = tl.load(c_ptr)
         min_slope = tl.load(c_ptr + 1)
         offset = tl.load(c_ptr + 2)
 
+        # Every input is read once: 3K+1 parameters, x, gy, gl per element.
+        lw = tl.load(pb, mask=mk, other=-float('inf'))
+        lh = tl.load(pb + K * F, mask=mk, other=-float('inf'))
+        zs = tl.load(pb + 2 * K * F, mask=mk, other=0.0) + offset
+        z_last = tl.load(p_ptr + poff + 3 * K * F, mask=m, other=0.0) + offset
         x = tl.load(x_ptr + xy, mask=m, other=0.0)
         gy = tl.load(gy_ptr + xy, mask=m, other=0.0)
         gl = tl.load(gl_ptr + xy, mask=m, other=0.0)
-        x0 = tl.load(x0_ptr + cols, mask=cmask, other=0.0)[None, :]
-        xf = tl.load(xf_ptr + cols, mask=cmask, other=1.0)[None, :]
-        y0 = tl.load(y0_ptr + cols, mask=cmask, other=0.0)[None, :]
-        yf = tl.load(yf_ptr + cols, mask=cmask, other=1.0)[None, :]
+        x0 = tl.load(x0_ptr + cols, mask=cmask, other=0.0)
+        xf = tl.load(xf_ptr + cols, mask=cmask, other=1.0)
+        y0 = tl.load(y0_ptr + cols, mask=cmask, other=0.0)
+        yf = tl.load(yf_ptr + cols, mask=cmask, other=1.0)
         R_w = (xf - x0) - K * min_bin
         R_h = (yf - y0) - K * min_bin
         xr = x - x0
@@ -316,69 +378,35 @@ def _kernels():
         above = xr >= W
         inside = (xr >= 0.0) & (xr < W)
 
-        w_max = tl.load(pb, mask=m, other=0.0)
-        h_max = tl.load(pb + K * F, mask=m, other=0.0)
-        for k in tl.static_range(1, K):
-            w_max = tl.maximum(w_max, tl.load(pb + k * F, mask=m, other=0.0))
-            h_max = tl.maximum(h_max, tl.load(pb + (K + k) * F, mask=m,
-                                              other=0.0))
-        w_sum = tl.zeros_like(x)
-        h_sum = tl.zeros_like(x)
-        for k in tl.static_range(K):
-            w_sum += tl.exp(tl.load(pb + k * F, mask=m, other=0.0) - w_max)
-            h_sum += tl.exp(tl.load(pb + (K + k) * F, mask=m, other=0.0)
-                            - h_max)
+        # Softmax probabilities (0 on the padded bins), one exponential per
+        # logit and one reciprocal per sum; slopes 0..K-1, slope K.
+        ew = tl.exp(lw - tl.expand_dims(tl.max(lw, axis=1), 1))
+        pw = ew * (1.0 / _bins_sum(ew))
+        eh = tl.exp(lh - tl.expand_dims(tl.max(lh, axis=1), 1))
+        ph = eh * (1.0 / _bins_sum(eh))
+        s, sig = _slope_tl(zs, min_slope)
+        s_last, sig_last = _slope_tl(z_last, min_slope)
 
-        # Walk the bins as K1 does, also keeping the bin's index, its
-        # softmax probabilities and the probability mass below it.
-        s_lo = _softplus_tl(tl.load(pb + 2 * K * F, mask=m, other=0.0)
-                            + offset) + min_slope
-        s_first = s_lo
-        cw = tl.zeros_like(x)
-        ch = tl.zeros_like(x)
-        cpw = tl.zeros_like(x)
-        cph = tl.zeros_like(x)
-        b_k = tl.zeros((BLOCK_B, BLOCK_F), dtype=tl.int32)
-        for k in tl.static_range(K):
-            pw = tl.exp(tl.load(pb + k * F, mask=m, other=0.0) - w_max) / w_sum
-            ph = (tl.exp(tl.load(pb + (K + k) * F, mask=m, other=0.0) - h_max)
-                  / h_sum)
-            w_k = pw * R_w + min_bin
-            h_k = ph * R_h + min_bin
-            s_hi = _softplus_tl(tl.load(pb + (2 * K + k + 1) * F, mask=m,
-                                        other=0.0) + offset) + min_slope
-            if k == 0:
-                b_w = w_k
-                b_h = h_k
-                b_cw = cw
-                b_ch = ch
-                b_sk = s_lo
-                b_sk1 = s_hi
-                b_pw = pw
-                b_ph = ph
-                b_cpw = cpw
-                b_cph = cph
-            else:
-                in_bin = xr >= cw
-                if k < K - 1:
-                    in_bin = in_bin & (xr < cw + w_k)
-                b_w = tl.where(in_bin, w_k, b_w)
-                b_h = tl.where(in_bin, h_k, b_h)
-                b_cw = tl.where(in_bin, cw, b_cw)
-                b_ch = tl.where(in_bin, ch, b_ch)
-                b_sk = tl.where(in_bin, s_lo, b_sk)
-                b_sk1 = tl.where(in_bin, s_hi, b_sk1)
-                b_pw = tl.where(in_bin, pw, b_pw)
-                b_ph = tl.where(in_bin, ph, b_ph)
-                b_cpw = tl.where(in_bin, cpw, b_cpw)
-                b_cph = tl.where(in_bin, cph, b_cph)
-                b_k = tl.where(in_bin, k, b_k)
-            cw = cw + w_k
-            ch = ch + h_k
-            cpw = cpw + pw
-            cph = cph + ph
-            s_lo = s_hi
-        s_last = s_lo
+        # The element's bin: the number of inner knots at or below it (bin
+        # 0 below the domain, K-1 above it). cw, ch: right edges of the bins.
+        cw = tl.cumsum(pw * R_w + min_bin, axis=1)
+        ch = tl.cumsum(ph * R_h + min_bin, axis=1)
+        b = _bins_sum(tl.where((kk < K - 1) & (xr >= cw), 1, 0))
+        at = kk == b
+        under = kk < b
+        left = kk == b - 1
+        b_pw = _bins_sum(tl.where(at, pw, 0.0))
+        b_ph = _bins_sum(tl.where(at, ph, 0.0))
+        b_w = b_pw * R_w + min_bin
+        b_h = b_ph * R_h + min_bin
+        b_cw = _bins_sum(tl.where(left, cw, 0.0))
+        b_ch = _bins_sum(tl.where(left, ch, 0.0))
+        b_cpw = _bins_sum(tl.where(under, pw, 0.0))
+        b_cph = _bins_sum(tl.where(under, ph, 0.0))
+        b_sk = _bins_sum(tl.where(at, s, 0.0))
+        b_sk1 = tl.where(b == K - 1, s_last,
+                         _bins_sum(tl.where(kk == b + 1, s, 0.0)))
+        s_first = _bins_sum(tl.where(kk == 0, s, 0.0))
 
         # Analytic gradients of the element's bin (as the TPU kernel).
         rw = 1.0 / b_w
@@ -400,7 +428,7 @@ def _kernels():
         ge = (gy * (hrD2 * (dA_de * D - A * dD_de))
               + gl * (dN_de * rN - 2.0 * dD_de * rD))
         gsb = (gy * (hrD2 * (e * e * D - A * (1.0 - 2.0 * emo)))
-               + gl * (2.0 * b_w / b_h + 2.0 * emo * rN
+               + gl * (2.0 / sb + 2.0 * emo * rN
                        - 2.0 * (1.0 - 2.0 * emo) * rD))
         gs_k = (gy * (hrD2 * (emo * D - A * emo))
                 + gl * ((1.0 - e) * (1.0 - e) * rN - 2.0 * emo * rD))
@@ -409,6 +437,8 @@ def _kernels():
         gh_bin = gy * A * rD + gsb * rw
         gcw = -ge * rw   # flows to every width below the bin
         gch = gy         # flows to every height below the bin
+        # d log(slope) / d slope in the tails, 1 / slope.
+        gl_tail = gl * (1.0 / tl.where(below, s_first, s_last))
 
         gx = tl.where(inside, ge * rw, 0.0)
         gx = tl.where(below, gy * s_first, gx)
@@ -419,27 +449,21 @@ def _kernels():
         # g_k = g_bin at the bin, g_offset below it and 0 above it.
         dot_w = tl.where(inside, gw_bin * b_pw + gcw * b_cpw, 0.0)
         dot_h = tl.where(inside, gh_bin * b_ph + gch * b_cph, 0.0)
-        for k in tl.static_range(K):
-            pw = tl.exp(tl.load(pb + k * F, mask=m, other=0.0) - w_max) / w_sum
-            ph = (tl.exp(tl.load(pb + (K + k) * F, mask=m, other=0.0) - h_max)
-                  / h_sum)
-            g_w = tl.where(inside & (b_k == k), gw_bin,
-                           tl.where(inside & (b_k > k), gcw, 0.0))
-            g_h = tl.where(inside & (b_k == k), gh_bin,
-                           tl.where(inside & (b_k > k), gch, 0.0))
-            tl.store(gb + k * F, R_w * pw * (g_w - dot_w), mask=m)
-            tl.store(gb + (K + k) * F, R_h * ph * (g_h - dot_h), mask=m)
+        g_w = tl.where(inside & at, gw_bin,
+                       tl.where(inside & under, gcw, 0.0))
+        g_h = tl.where(inside & at, gh_bin,
+                       tl.where(inside & under, gch, 0.0))
+        tl.store(gb, R_w * pw * (g_w - dot_w), mask=mk)
+        tl.store(gb + K * F, R_h * ph * (g_h - dot_h), mask=mk)
 
         # Slope chains through softplus: d softplus(z) / dz = sigmoid(z).
-        for j in tl.static_range(K + 1):
-            z = tl.load(pb + (2 * K + j) * F, mask=m, other=0.0) + offset
-            g_s = (tl.where(inside & (b_k == j), gs_k, 0.0)
-                   + tl.where(inside & (b_k + 1 == j), gs_k1, 0.0))
-            if j == 0:
-                g_s += tl.where(below, gy * xr + gl / s_first, 0.0)
-            if j == K:
-                g_s += tl.where(above, gy * (xr - W) + gl / s_last, 0.0)
-            tl.store(gb + (2 * K + j) * F, g_s / (1.0 + tl.exp(-z)), mask=m)
+        g_s = (tl.where(inside & at, gs_k, 0.0)
+               + tl.where(inside & (kk == b + 1), gs_k1, 0.0))
+        g_s += tl.where((kk == 0) & below, gy * xr + gl_tail, 0.0)
+        tl.store(gb + 2 * K * F, g_s * sig, mask=mk)
+        g_last = (tl.where(inside & (b == K - 1), gs_k1, 0.0)
+                  + tl.where(above, gy * (xr - W) + gl_tail, 0.0))
+        tl.store(gp_ptr + poff + 3 * K * F, g_last * sig_last, mask=m)
 
     _KERNELS['forward'] = forward_kernel
     _KERNELS['backward'] = backward_kernel
@@ -457,8 +481,13 @@ def _constants(device, dtype, min_bin_size, min_slope):
     return _CONSTANTS[key]
 
 
-def _grid(B, F):
-    return ((B + BLOCK_B - 1) // BLOCK_B, (F + BLOCK_F - 1) // BLOCK_F)
+def _grid(B, F, block_b=BLOCK_B, block_f=BLOCK_F):
+    return ((B + block_b - 1) // block_b, (F + block_f - 1) // block_f)
+
+
+def _padded_bins(n_bins):
+    """K2's bins axis: K rounded up to a power of two."""
+    return 1 << max(n_bins - 1, 0).bit_length()
 
 
 def _require_cuda(*tensors):
@@ -500,17 +529,26 @@ def launch_backward(x, params, x0, xf, y0, yf, gy, gl, n_bins,
     _require_cuda(x, params, x0, xf, y0, yf, gy, gl)
     if gy.shape != x.shape or gl.shape != x.shape:
         raise ValueError(f'Cotangents must have shape {tuple(x.shape)}.')
-    kernels = _kernels()
-    B, F = x.shape
     gx = torch.empty_like(x)
     gp = torch.empty_like(params)
     consts = _constants(x.device, x.dtype, min_bin_size, min_slope)
-    with torch.cuda.device(x.device):
-        kernels['backward'][_grid(B, F)](
-            x, params, x0, xf, y0, yf, consts, gy, gl, gx, gp, B, F,
-            K=n_bins, BLOCK_B=BLOCK_B, BLOCK_F=BLOCK_F, num_warps=NUM_WARPS)
+    _backward_launch(x, params, (x0, xf, y0, yf), consts, gy, gl, gx, gp,
+                     n_bins, BACKWARD_LAYOUT)
     LAUNCHES.backward += 1
     return gx, gp
+
+
+def _backward_launch(x, params, bounds, consts, gy, gl, gx, gp, n_bins,
+                     layout):
+    """K2 into ``gx`` and ``gp`` with the tile ``layout`` (``BLOCK_B``,
+    ``BLOCK_F``, ``num_warps``); returns Triton's launch handle. Not
+    counted: :func:`launch_backward` is K2's launcher."""
+    B, F = x.shape
+    grid = _grid(B, F, layout['BLOCK_B'], layout['BLOCK_F'])
+    with torch.cuda.device(x.device):
+        return _kernels()['backward'][grid](
+            x, params, *bounds, consts, gy, gl, gx, gp, B, F, K=n_bins,
+            KP=_padded_bins(n_bins), **layout)
 
 
 class _FusedSpline(torch.autograd.Function):
