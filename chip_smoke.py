@@ -46,6 +46,15 @@ Phases, each of which passes or exits non-zero:
    per SM, registers, spills), each EGNN kernel and its plain version, the
    training step (beside the dense path's on the same map), the map
    evaluation, peak memory, and the profiler's breakdown of the step.
+8. The Cartesian reference-frame slice: phase 3's MAF over 90 features
+   inside the stack that ``CartesianMAFMap`` builds (``PartialFlow`` with
+   4 fixed atoms, ``CenteredCentroidFlow`` on the origin atom,
+   ``OrientedFlow``, ``PCAWhitenedFlow`` fitted on 5120 frames), 36 atoms
+   of a correlated Gaussian around a seeded molecule, batch 4096. K1/K2
+   against their plain version at F=90; the map against the float64
+   unfused path; the frame's constraints and a translation; the counted
+   path and a round trip as in phase 3; K1/K2's times at F=90, the step,
+   the map evaluation, peak memory and the profiler's breakdown.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -109,31 +118,31 @@ def rel_err(actual, expected):
     return err, err / max(1.0, float(expected.abs().max()))
 
 
-def spline_inputs(adversarial, device, seed):
+def spline_inputs(adversarial, device, seed, f=F):
     """Bench-shape inputs on the domain [-3, 3]; x kept 1e-4 away from
     every knot, where the bin, and so the gradient, is discontinuous."""
     g = torch.Generator().manual_seed(seed)
-    bound = torch.ones(F, dtype=torch.float64)
+    bound = torch.ones(f, dtype=torch.float64)
     x0, xf = -3.0 * bound, 3.0 * bound
     if adversarial:
-        x = -2.95 + 0.75 * torch.rand(B, F, generator=g, dtype=torch.float64)
-        params = torch.zeros(B, (3 * K + 1) * F, dtype=torch.float64)
-        params[:, 2 * K * F:] = 9.0
-        params[:, (K + 3) * F:(K + 4) * F] = -30.0
+        x = -2.95 + 0.75 * torch.rand(B, f, generator=g, dtype=torch.float64)
+        params = torch.zeros(B, (3 * K + 1) * f, dtype=torch.float64)
+        params[:, 2 * K * f:] = 9.0
+        params[:, (K + 3) * f:(K + 4) * f] = -30.0
         params += 0.1 * torch.randn(params.shape, generator=g,
                                     dtype=torch.float64)
     else:
         # Half the batch inside [-3, 3), half outside (3 <= |x| < 6).
-        u = torch.rand(B, F, generator=g, dtype=torch.float64)
-        sign = torch.where(torch.rand(B, F, generator=g) < 0.5, -1.0, 1.0)
+        u = torch.rand(B, f, generator=g, dtype=torch.float64)
+        sign = torch.where(torch.rand(B, f, generator=g) < 0.5, -1.0, 1.0)
         x = torch.cat([-3.0 + 6.0 * u[:B // 2],
                        sign[B // 2:] * (3.0 + 3.0 * u[B // 2:])])
-        params = 0.5 * torch.randn(B, (3 * K + 1) * F, generator=g,
+        params = 0.5 * torch.randn(B, (3 * K + 1) * f, generator=g,
                                    dtype=torch.float64)
     knots = x0 + torch.cumsum(torch.softmax(
-        params.reshape(B, 3 * K + 1, F)[:, :K], dim=1) * (6.0 - K * 1e-4)
+        params.reshape(B, 3 * K + 1, f)[:, :K], dim=1) * (6.0 - K * 1e-4)
         + 1e-4, dim=1)
-    knots = torch.cat([x0.expand(B, 1, F), knots], dim=1)
+    knots = torch.cat([x0.expand(B, 1, f), knots], dim=1)
     near = (x[:, None] - knots).abs().min(dim=1).values < 1e-4
     x = torch.where(near, x + 3e-4, x)
     cast = dict(dtype=torch.float32, device=device)
@@ -141,15 +150,17 @@ def spline_inputs(adversarial, device, seed):
             x0.to(**cast), xf.to(**cast))
 
 
-def kernel_phase(device):
-    """K1 and K2 against the plain version; returns the measured errors."""
+def kernel_phase(device, f=F):
+    """K1 and K2 against the plain version at (B, f, K); returns the
+    measured errors."""
     from tfep_tpu_torch.ops import spline as fs
     results = {}
     for case in ('mixed', 'adversarial'):
-        x, params, *bounds = spline_inputs(case == 'adversarial', device, 1)
+        x, params, *bounds = spline_inputs(case == 'adversarial', device, 1,
+                                           f)
         g = torch.Generator().manual_seed(2)
-        gy = torch.randn(B, F, generator=g).to(device)
-        gl = torch.randn(B, F, generator=g).to(device)
+        gy = torch.randn(B, f, generator=g).to(device)
+        gl = torch.randn(B, f, generator=g).to(device)
         outs = {}
         for name, fn in (('kernel', fs.fused_spline),
                          ('plain', fs.fused_spline_reference)):
@@ -222,19 +233,29 @@ def build_slice(device):
 
 
 def set_fused(flow, policy):
-    for maf in flow.flows:
-        maf.transformer.fused = policy
+    """The fused policy of every spline in ``flow``."""
+    for module in flow.modules():
+        if hasattr(module, 'fused'):
+            module.fused = policy
 
 
-def slice_phase(flow, frames, n_steps):
+def slice_phase(flow, frames, n_steps, round_trip_frames=None,
+                ldj_slack=None):
+    """The map against the float64 unfused path, the counted main path (a
+    no-grad evaluation, then the training steps) and a round trip, on the
+    frames that ``round_trip_frames`` selects (all by default).
+    ``ldj_slack(x, y)``, where given, is each frame's rounding allowance
+    on log_det_J besides MAP_TOL."""
     from tfep_tpu_torch.loss import boltzmann_kl_div_loss
+    from tfep_tpu_torch.nn.flows import SequentialFlow
     from tfep_tpu_torch.ops.spline import LAUNCHES
 
+    mafs = next(m for m in flow.modules() if isinstance(m, SequentialFlow))
     n_params = sum(p.numel() for p in flow.parameters())
     say(f'  flow: {N_LAYERS} MAF layers, MADE widths '
-        f'{flow[0].conditioner.dimension_in} -> '
-        f'{flow[0].conditioner.dimensions_hidden} -> '
-        f'{flow[0].conditioner.dimension_out}, {n_params} parameters')
+        f'{mafs[0].conditioner.dimension_in} -> '
+        f'{mafs[0].conditioner.dimensions_hidden} -> '
+        f'{mafs[0].conditioner.dimension_out}, {n_params} parameters')
 
     # The kernel path (float32) against the port's unfused path on the
     # same map in float64, which the float32 unfused path is not: it maps
@@ -246,10 +267,10 @@ def slice_phase(flow, frames, n_steps):
         y_p, ldj_p = reference(frames.double())
     del reference
     for label, kern, plain in (('y', y_k, y_p), ('log_det_J', ldj_k, ldj_p)):
-        err, rel = rel_err(kern.double(), plain)
-        say(f'  map {label}: max|kernel path - float64 unfused path| = '
-            f'{err:.3e} (relative to scale {rel:.3e}, tolerance {MAP_TOL:g})')
-        if not rel <= MAP_TOL:
+        slack = (ldj_slack(frames, y_p) if ldj_slack is not None
+                 and label == 'log_det_J' else None)
+        if not within(label, 'map', 'kernel path - float64 unfused path',
+                      kern, plain, slack):
             raise AssertionError(f'map {label} disagrees')
 
     optimizer = torch.optim.AdamW(flow.parameters(), lr=1e-4,
@@ -287,18 +308,40 @@ def slice_phase(flow, frames, n_steps):
     if not (torch.isfinite(work).all() and np.all(np.isfinite(losses))):
         raise AssertionError('non-finite work or loss')
 
+    round_trip(flow, frames if round_trip_frames is None
+               else frames[round_trip_frames])
+    return launches, train_step
+
+
+def within(label, what, difference, actual, expected, slack=None):
+    """Prints max|actual - expected| and whether it is within MAP_TOL of
+    max(1, max|expected|), plus each frame's ``slack`` where given."""
+    err, rel = rel_err(actual.double(), expected)
+    line = (f'  {what} {label}: max|{difference}| = {err:.3e} (relative to '
+            f'scale {rel:.3e}, tolerance {MAP_TOL:g}')
+    if slack is not None:
+        excess = ((actual.double() - expected).abs() - slack).clamp(min=0)
+        rel = float(excess.max()) / max(1.0, float(expected.abs().max()))
+        line += (f', with each frame\'s rounding allowance (at most '
+                 f'{float(slack.max()):.3e}) {rel:.3e}')
+    say(line + ')')
+    return rel <= MAP_TOL
+
+
+def round_trip(flow, frames, label='round trip'):
+    """inverse(forward(x)) against x, at ROUND_TRIP_TOL."""
     with torch.no_grad():
         y, ldj = flow(frames)
         x_back, ldj_inv = flow.inverse(y)
     rt_err, rt_rel = rel_err(x_back, frames)
     ldj_err = float((ldj + ldj_inv).abs().max())
-    say(f'  round trip: max|inverse(forward(x)) - x| = {rt_err:.3e}, '
+    say(f'  {label} ({frames.shape[0]} frames, {frames.dtype}): '
+        f'max|inverse(forward(x)) - x| = {rt_err:.3e}, '
         f'max|ldj + ldj_inverse| = {ldj_err:.3e} (tolerance '
         f'{ROUND_TRIP_TOL:g} relative to scale)')
     if not (rt_rel <= ROUND_TRIP_TOL and ldj_err <= ROUND_TRIP_TOL *
             max(1.0, float(ldj.abs().max()))):
-        raise AssertionError('round trip disagrees')
-    return launches, train_step
+        raise AssertionError(f'{label} disagrees')
 
 
 def event_ms(fn, n, sets):
@@ -348,17 +391,23 @@ def graph_ms(fn, sets, n, reps):
     return start.elapsed_time(end) / (reps * n)
 
 
+def spline_sets(device, f=F):
+    """Four input sets of K1/K2 at (B, f, K), 44 MB each at F = 96: more
+    than the 50 MB L2 cache together."""
+    sets = []
+    for seed in range(4):
+        x, params, *bounds = spline_inputs(False, device, 10 + seed, f)
+        g = torch.Generator().manual_seed(20 + seed)
+        gy = torch.randn(B, f, generator=g).to(device)
+        gl = torch.randn(B, f, generator=g).to(device)
+        sets.append((x, params, bounds, gy, gl))
+    return sets
+
+
 def timing_phase(device, flow, frames, train_step, smi):
     from tfep_tpu_torch.ops import spline as fs
     from tfep_tpu_torch.tools import spline_k2_probe as k2_probe
-    # Four input sets of 44 MB each, more than the 50 MB L2 cache.
-    sets = []
-    for seed in range(4):
-        x, params, *bounds = spline_inputs(False, device, 10 + seed)
-        g = torch.Generator().manual_seed(20 + seed)
-        gy = torch.randn(B, F, generator=g).to(device)
-        gl = torch.randn(B, F, generator=g).to(device)
-        sets.append((x, params, bounds, gy, gl))
+    sets = spline_sets(device)
     consts = (K, 1e-4, 1e-4)
 
     def k1(x, params, bounds, gy, gl):
@@ -427,14 +476,16 @@ def timing_phase(device, flow, frames, train_step, smi):
             f'{host_ms:.5f} ms; [{smi}]')
     say('  library call: none (no single PyTorch call computes the '
         'rational-quadratic spline)')
+    return rows, step_times(flow, frames, train_step, smi)
 
-    # The training step and the map evaluation, host clock around work
-    # that ends in a synchronize.
+
+def step_times(flow, frames, train_step, smi, n=20):
+    """The training step and the map evaluation, host clock around work
+    that ends in a synchronize, and the step's peak memory."""
     for _ in range(3):
         train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = 20
     t0 = time.perf_counter()
     for _ in range(n):
         train_step()
@@ -449,13 +500,14 @@ def timing_phase(device, flow, frames, train_step, smi):
             flow(frames)
         torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) / n * 1e3
-    say(f'  training step: {step_ms:.3f} ms, {B / step_ms * 1e3:.0f} '
-        f'frames/s at batch {B}; peak memory {peak / 2**20:.1f} MiB; '
+    batch = frames.shape[0]
+    say(f'  training step: {step_ms:.3f} ms, {batch / step_ms * 1e3:.0f} '
+        f'frames/s at batch {batch}; peak memory {peak / 2**20:.1f} MiB; '
         f'[{smi}]')
     say(f'  map evaluation (no grad): {eval_ms:.3f} ms, '
-        f'{B / eval_ms * 1e3:.0f} frames/s; [{smi}]')
-    return rows, dict(step_ms=step_ms, frames_per_s=B / step_ms * 1e3,
-                      eval_ms=eval_ms, peak_bytes=peak)
+        f'{batch / eval_ms * 1e3:.0f} frames/s; [{smi}]')
+    return dict(step_ms=step_ms, frames_per_s=batch / step_ms * 1e3,
+                eval_ms=eval_ms, peak_bytes=peak)
 
 
 def _timed_build(build):
@@ -899,6 +951,250 @@ def cnf_timing_phase(flow, frames, train_step, smi):
                 dense_peak_bytes=dense_peak)
 
 
+# ---------------------------------------------------------------------------
+# The Cartesian reference-frame slice: the bench MAF inside the flow stack
+# that CartesianMAFMap builds, with K1/K2 at F = 90.
+# ---------------------------------------------------------------------------
+
+# Atom 0 is the origin (a conditioning atom), atoms 1 and 2 the axes atoms,
+# atoms 1-31 mapped, the last four a fixed solvent shell.
+CART_ATOMS, CART_SOLVENT = 36, 4
+CART_DOFS = 3 * CART_ATOMS
+# The MAF sees the 96 DOFs of the 32 unfixed atoms less the six that fix
+# the frame: origin xyz, axis atom xy, plane atom y.
+CART_F = 3 * (CART_ATOMS - CART_SOLVENT) - 6
+# CartesianMAFMap's pca_n_frames default.
+CART_PCA_FRAMES = 5120
+CART_SHIFT = (1.5, -2.0, 0.75)
+# The origin atom goes out and back through one float32 translation:
+# |y - x| under a few ulp of max(1, max|x|).
+ORIGIN_TOL = 1e-6
+# Sines of the angles that the frame constraints keep at zero, in float32:
+# the rotations come from arccos/arcsin of a cosine with a few ulp of
+# rounding, an angle error of at most about sqrt(2 * 4 * 6e-8) = 7e-4
+# (reached where the axis atom lies within 1e-4 rad of the axis, or the
+# plane atom's projection within 1e-4 rad of the plane normal).
+FRAME_TOL = 1e-3
+# That float32 rotation (arccos/arcsin of clipped cosines, as in the JAX
+# package) is ill-conditioned where the axis atom nears the z axis or the
+# plane atom's projection nears the plane normal: there it is off its
+# float64 value by up to about 1e-4, and the float32 inverse of six MAF
+# layers amplifies such an input error about a thousandfold. The float32
+# round trip is held on the frames whose float32 rotation is within
+# ROTATION_TOL of float64's (typically 1e-7 off), the others in float64 on
+# the same map.
+ROTATION_TOL = 1e-6
+# OrientedFlow's frame volume element, 2 log|a| + log|p| of the input and
+# of the output (a: the axis atom's distance from the origin atom, p: the
+# plane atom's from the axis), turns a rounding delta of a or p into
+# delta * (2/|a| + 1/|p|) of log_det_J: about 1e-3 where the MAF maps the
+# axis atom next to the origin (|a| ~ 1e-3). log_det_J is held at MAP_TOL
+# plus RADIUS_ROUNDING times that sensitivity for each frame; delta is
+# about ten float32 ulp of the largest coordinates (about 10).
+RADIUS_ROUNDING = 1e-5
+
+
+def cartesian_frames(n):
+    """(n, 108) float64 frames: a correlated anisotropic Gaussian around a
+    seeded molecule of 32 atoms in a shell of 4, made as
+    examples/solvated_preflow_tfep.py:43-58 makes its state A."""
+    rng = np.random.default_rng(SEED)
+    n_mol = CART_ATOMS - CART_SOLVENT
+    mean = np.concatenate([rng.normal(0.0, 1.2, size=(n_mol, 3)),
+                           3.0 * rng.normal(0.0, 1.0, size=(CART_SOLVENT, 3))
+                           ]).reshape(-1)
+    mixing = np.eye(CART_DOFS) + 0.25 * rng.normal(size=(CART_DOFS,
+                                                          CART_DOFS))
+    chol = np.linalg.cholesky(0.15 * mixing @ mixing.T)
+    return mean + rng.normal(size=(n, CART_DOFS)) @ chol.T
+
+
+def build_cartesian(device, batch=B, n_pca=CART_PCA_FRAMES):
+    """The stack CartesianMAFMap builds with origin_atom=0, axes_atoms=[1,
+    2], conditioning_atoms=[0], pca_whitening=True and atoms 32-35 fixed,
+    built by hand with the port's flows (the app layer is not ported):
+    configure_flow and _wrap_reference_frame of
+    tfep_tpu/app/cartesianmaf.py:109-173, the PCA frames as
+    _collect_maf_inputs takes them (:175-217), and create_partial_flow of
+    tfep_tpu/app/base.py:233-241."""
+    from tfep_tpu_torch.nn.conditioners.made import generate_degrees
+    from tfep_tpu_torch.nn.flows import (
+        MAF, CenteredCentroidFlow, Flow, OrientedFlow, PartialFlow,
+        PCAWhitenedFlow, SequentialFlow,
+    )
+    from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
+    from tfep_tpu_torch.utils.misc import atom_to_flattened_indices
+
+    n_free = 3 * (CART_ATOMS - CART_SOLVENT)
+
+    def wrap(flow, dtype):
+        # The axes atoms 1 and 2 are 0 and 1 once the origin atom is out.
+        flow = OrientedFlow.create(
+            flow, n_features=n_free - 3, axis_point_idx=0, plane_point_idx=1,
+            axis='z', plane='xz', device=device, dtype=dtype)
+        flow = CenteredCentroidFlow.create(
+            flow, space_dimension=3, n_features=n_free,
+            subset_point_indices=[0], device=device, dtype=dtype)
+        return PartialFlow.create(
+            flow, atom_to_flattened_indices(
+                np.arange(CART_ATOMS - CART_SOLVENT, CART_ATOMS)),
+            n_features=CART_DOFS, device=device)
+
+    class Capture(Flow):
+        """The identity, keeping the frames as the MAF stack sees them."""
+
+        def __init__(self):
+            super().__init__()
+            self.captured = []
+
+        def forward(self, x):
+            self.captured.append(x)
+            return x, torch.zeros_like(x[:, 0])
+
+    generator = torch.Generator().manual_seed(SEED)
+    bound = np.ones(CART_F)
+    # The origin atom is the only conditioning atom and leaves with the
+    # frame, so the MAF has no conditioning features.
+    mafs = SequentialFlow.create(*[MAF.create(
+        generator, generate_degrees(
+            CART_F, order='ascending' if i % 2 == 0 else 'descending'),
+        transformer=NeuralSplineTransformer(-3.0 * bound, 3.0 * bound, K,
+                                            device=device),
+        device=device, dtype=torch.float32) for i in range(N_LAYERS)],
+        device=device)
+    with torch.no_grad():
+        for p in mafs.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=generator).to(p))
+
+    frames = torch.from_numpy(cartesian_frames(max(n_pca, batch))).to(device)
+    capture = Capture()
+    probe = wrap(capture, torch.float64)
+    with torch.no_grad():
+        for start in range(0, n_pca, 1024):
+            probe(frames[start:min(start + 1024, n_pca)])
+    pca = PCAWhitenedFlow.create(mafs, torch.cat(capture.captured),
+                                 device=device)
+    say(f'  PCA fit on {n_pca} frames in float64: singular values '
+        f'{float(pca.blackening_matrix.norm(dim=1).min()):.4g} to '
+        f'{float(pca.blackening_matrix.norm(dim=1).max()):.4g}')
+    return wrap(pca, torch.float32), frames[:batch].float()
+
+
+def radius_slack(x, y):
+    """Each frame's rounding allowance on log_det_J: RADIUS_ROUNDING times
+    the volume element's sensitivity 2/|a| + 1/|p|, input and output."""
+    sensitivity = 0.0
+    for z in (x, y):
+        atoms = z.double().reshape(z.shape[0], -1, 3)
+        axis, plane = atoms[:, 1] - atoms[:, 0], atoms[:, 2] - atoms[:, 0]
+        a = axis.norm(dim=1)
+        p = torch.linalg.cross(axis, plane).norm(dim=1) / a
+        sensitivity = sensitivity + 2.0 / a + 1.0 / p
+    return RADIUS_ROUNDING * sensitivity
+
+
+def frame_phase(flow, frames):
+    """The frame's constraints and the translation check on the float32
+    kernel path."""
+    batch = frames.shape[0]
+    shift = torch.tensor(CART_SHIFT, device=frames.device)
+    with torch.no_grad():
+        y, ldj = flow(frames)
+        y_s, ldj_s = flow((frames.reshape(batch, -1, 3) + shift).reshape(
+            batch, -1))
+    n_mol = 3 * (CART_ATOMS - CART_SOLVENT)
+    if not torch.equal(y[:, n_mol:], frames[:, n_mol:]):
+        raise AssertionError('a fixed atom moved')
+    x_atoms = frames.double().reshape(batch, -1, 3)
+    y_atoms = y.double().reshape(batch, -1, 3)
+    _, origin_rel = rel_err(y_atoms[:, 0], x_atoms[:, 0])
+    axis_in = x_atoms[:, 1] - x_atoms[:, 0]
+    axis_out = y_atoms[:, 1] - y_atoms[:, 0]
+    normal = torch.linalg.cross(axis_out, x_atoms[:, 2] - x_atoms[:, 0])
+    plane_out = y_atoms[:, 2] - y_atoms[:, 0]
+    axis_sin = (torch.linalg.cross(axis_in, axis_out).norm(dim=1)
+                / (axis_in.norm(dim=1) * axis_out.norm(dim=1)))
+    plane_cos = ((plane_out * normal).sum(dim=1).abs()
+                 / (plane_out.norm(dim=1) * normal.norm(dim=1)))
+    say(f'  fixed atoms {CART_ATOMS - CART_SOLVENT}-{CART_ATOMS - 1} '
+        f'bit-identical; origin atom |y - x| {origin_rel:.3e} relative to '
+        f'scale (tolerance {ORIGIN_TOL:g})')
+    say(f'  axis atom off its input direction from the origin: sine at most '
+        f'{float(axis_sin.max()):.3e} (median {float(axis_sin.median()):.3e}); '
+        f'plane atom off its input plane: sine at most '
+        f'{float(plane_cos.max()):.3e} (median '
+        f'{float(plane_cos.median()):.3e}); tolerance {FRAME_TOL:g}')
+    if not origin_rel <= ORIGIN_TOL:
+        raise AssertionError('the origin atom moved')
+    if not (axis_sin.max() <= FRAME_TOL and plane_cos.max() <= FRAME_TOL):
+        raise AssertionError('the frame constraints do not hold')
+    # The float32 rounding of x + shift goes through the map as in the
+    # MAP_TOL check.
+    moved = (y.reshape(batch, -1, 3) + shift).reshape(batch, -1)
+    what = f'frames translated by {CART_SHIFT}:'
+    if not (within('y', what, 'map(x + v) - (map(x) + v)', y_s, moved)
+            and within('log_det_J', what, 'change', ldj_s, ldj,
+                       radius_slack(frames, y))):
+        raise AssertionError('the map does not commute with translations')
+
+
+def rotation_error(frames):
+    """Per frame, max|R32 - R64| of the rotation that OrientedFlow takes
+    for it (axis atom 1 onto z, plane atom 2 onto xz, about atom 0)."""
+    from tfep_tpu_torch.utils.geometry import reference_frame_rotation_matrix
+    atoms = frames.double().reshape(frames.shape[0], -1, 3)
+    from_origin = atoms[:, 1:3] - atoms[:, :1]
+    r32, r64 = (reference_frame_rotation_matrix(
+        from_origin[:, 0].to(dtype), from_origin[:, 1].to(dtype),
+        axis=(0.0, 0.0, 1.0), plane_axis=(1.0, 0.0, 0.0))
+        for dtype in (torch.float32, torch.float64))
+    return (r32.double() - r64).abs().amax(dim=(1, 2))
+
+
+def cartesian_phase(device, smi):
+    """Phase 8: K1/K2 at F = 90, the stack, its checks, times, profile."""
+    from tfep_tpu_torch.ops import spline as fs
+    errors = kernel_phase(device, CART_F)
+    flow, frames = build_cartesian(device)
+    frame_phase(flow, frames)
+    rotation_err = rotation_error(frames)
+    conditioned = rotation_err <= ROTATION_TOL
+    say(f'  {int((~conditioned).sum())} of {frames.shape[0]} frames take a '
+        f'float32 frame rotation more than {ROTATION_TOL:g} off float64\'s '
+        f'(at most {float(rotation_err.max()):.3e})')
+    launches, train_step = slice_phase(flow, frames, N_STEPS, conditioned,
+                                       radius_slack)
+    reference = copy.deepcopy(flow).double()
+    set_fused(reference, 'never')
+    round_trip(reference, frames[~conditioned].double(),
+               'round trip of the other frames')
+    del reference
+
+    sets = spline_sets(device, CART_F)
+    consts = (K, 1e-4, 1e-4)
+    kernel_ms = {}
+    for name, launch, nbytes, nops in (
+            ('spline_forward',
+             lambda x, p, b, gy, gl: fs.launch_forward(x, p, *b, *consts),
+             fs.forward_bytes(B, CART_F, K, 4), fs.forward_ops(B, CART_F, K)),
+            ('spline_backward',
+             lambda x, p, b, gy, gl: fs.launch_backward(x, p, *b, gy, gl,
+                                                        *consts),
+             fs.backward_bytes(B, CART_F, K, 4),
+             fs.backward_ops(B, CART_F, K))):
+        runs = [graph_ms(launch, sets, 64, 5) for _ in range(2)]
+        kernel_ms[name] = sum(runs) / 2
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+        say(f'  {name} at F={CART_F}: {kernel_ms[name]:.5f} ms (CUDA graph, '
+            f'runs {runs[0]:.5f}, {runs[1]:.5f}); bound {bound_ms:.5f} ms '
+            f'({nbytes / 1e6:.1f} MB); [{smi}]')
+    del sets
+    times = step_times(flow, frames, train_step, smi)
+    profile_phase(train_step, times['step_ms'], smi)
+    return dict(errors=errors, launches=launches, kernel_ms=kernel_ms,
+                **times)
+
+
 def main():
     import threading
 
@@ -952,6 +1248,12 @@ def main():
     cnf_times = cnf_timing_phase(cnf, cnf_frames, cnf_step, smi)
     profile_phase(cnf_step, cnf_times['step_ms'], smi, n=2,
                   batch=CNF_BATCH)
+    del cnf, cnf_frames, cnf_step
+    torch.cuda.empty_cache()
+
+    say('[8] the Cartesian reference-frame slice: the MAF inside the '
+        'CartesianMAFMap stack, K1/K2 at F=90')
+    cart = cartesian_phase(device, smi)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -967,7 +1269,7 @@ def main():
             'source': 'tfep_tpu_torch/ops/spline.py',
             'replaces': replaces[row['name']],
             'launches': launches[which],
-            'max_abs_err': errors[which],
+            'max_abs_err': max(errors[which], cart['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': None})
@@ -999,6 +1301,8 @@ def main():
                     'eval_ms': step['eval_ms'],
                     'peak_memory_bytes': step['peak_bytes'],
                     'cnf': cnf_times,
+                    'cartesian': {k: v for k, v in cart.items()
+                                  if k != 'errors'},
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -14,7 +14,10 @@ from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics
 from tfep_tpu_torch.nn.embeddings import (
     BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
 )
-from tfep_tpu_torch.nn.flows import ContinuousFlow, MAF, SequentialFlow
+from tfep_tpu_torch.nn.flows import (
+    CenteredCentroidFlow, ContinuousFlow, MAF, OrientedFlow, PartialFlow,
+    PCAWhitenedFlow, SequentialFlow,
+)
 from tfep_tpu_torch.nn.masked import MaskedLinear
 from tfep_tpu_torch.nn.transformers import (
     NeuralSplineTransformer, VolumePreservingShiftTransformer,
@@ -62,6 +65,11 @@ def no_card(monkeypatch):
                                 pairwise='fused'),
     lambda: MaskedVelocityDynamics.create(torch.nn.Identity(), [0], 3),
     lambda: ContinuousFlow.create(torch.nn.Identity()),
+    lambda: PartialFlow.create(torch.nn.Identity(), [0], 3),
+    lambda: CenteredCentroidFlow.create(torch.nn.Identity(), 3, 6),
+    lambda: OrientedFlow.create(torch.nn.Identity(), 9),
+    lambda: PCAWhitenedFlow.create(
+        torch.nn.Identity(), np.random.default_rng(0).normal(size=(8, 3))),
 ])
 def test_entry_points_without_device_raise(no_card, entry_point):
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -3,7 +3,8 @@ the CNF's dynamics, embeddings and ODE solvers."""
 
 from tfep_tpu_torch.nn.masked import MaskedLinear, create_autoregressive_mask  # noqa: F401
 from tfep_tpu_torch.nn.flows import (  # noqa: F401
-    AutoregressiveFlow, ContinuousFlow, Flow, MAF, SequentialFlow,
+    AutoregressiveFlow, CenteredCentroidFlow, ContinuousFlow, Flow, MAF,
+    OrientedFlow, PartialFlow, PCAWhitenedFlow, SequentialFlow,
 )
 from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics  # noqa: F401
 from tfep_tpu_torch.nn.embeddings import (  # noqa: F401

@@ -5,3 +5,7 @@ from tfep_tpu_torch.nn.flows.autoregressive import AutoregressiveFlow  # noqa: F
 from tfep_tpu_torch.nn.flows.continuous import ContinuousFlow  # noqa: F401
 from tfep_tpu_torch.nn.flows.maf import MAF  # noqa: F401
 from tfep_tpu_torch.nn.flows.sequential import SequentialFlow  # noqa: F401
+from tfep_tpu_torch.nn.flows.partial import PartialFlow  # noqa: F401
+from tfep_tpu_torch.nn.flows.centroid import CenteredCentroidFlow  # noqa: F401
+from tfep_tpu_torch.nn.flows.oriented import OrientedFlow  # noqa: F401
+from tfep_tpu_torch.nn.flows.pca import PCAWhitenedFlow  # noqa: F401

@@ -25,7 +25,7 @@ checkout's copy compares two versions in one run, in turns):
 
 ``--layouts 4x32x4 2x64x4`` also times this checkout's K2 and the copy
 probe with other tiles (rows x features x warps), each checked against
-the plain version first.
+the plain version first; ``--features 90`` takes another F.
 """
 
 from __future__ import annotations
@@ -282,6 +282,9 @@ def main(argv=None):
                         default=[], help='more tiles for the copy probe '
                         'alone, with suffixes a (aligned) and pN '
                         '(persistent, N stages)')
+    parser.add_argument('--features', type=int, default=None,
+                        help='F, the features per row (default: the MAF '
+                        "bench's 96)")
     args = parser.parse_args(argv)
     for layout in args.layouts:
         if 'stages' in layout:
@@ -292,17 +295,10 @@ def main(argv=None):
         raise SystemExit('spline_k2_probe: no CUDA device is available.')
     smi = chip_smoke.card_phase()
     device = torch.device('cuda')
-    B, F, K = chip_smoke.B, chip_smoke.F, chip_smoke.K
+    B, K = chip_smoke.B, chip_smoke.K
+    F = args.features or chip_smoke.F
     modules = [_load(p, i) for i, p in enumerate(args.sources)]
-
-    sets = []
-    for seed in range(4):
-        x, params, *bounds = chip_smoke.spline_inputs(False, device,
-                                                      10 + seed)
-        g = torch.Generator().manual_seed(20 + seed)
-        gy = torch.randn(B, F, generator=g).to(device)
-        gl = torch.randn(B, F, generator=g).to(device)
-        sets.append((x, params, bounds, gy, gl))
+    sets = chip_smoke.spline_sets(device, F)
 
     # The plain version's gradients on set 0, for each variant's check.
     x, params, bounds, gy, gl = sets[0]
