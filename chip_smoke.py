@@ -55,6 +55,18 @@ Phases, each of which passes or exits non-zero:
    unfused path; the frame's constraints and a translation; the counted
    path and a round trip as in phase 3; K1/K2's times at F=90, the step,
    the map evaluation, peak memory and the profiler's breakdown.
+9. The entry point: the port's ``CartesianMAFMap`` on phase 8's
+   configuration (40,960 frames in a ``System``, a harmonic potential in
+   kcal/mol at 300 K), trained through ``Trainer.fit``. (a) With phase 8's
+   untrained weights (``load_state_dict(strict=True)``) the map's forward
+   equals phase 8's flow; (b) one step gives phase 8's first loss; (c) two
+   epochs with a seeded shuffle, prefetch and checkpoints: K1/K2 counted
+   (6/6 per step), finite losses, every step's log rows in the sampler's
+   order, fixed atoms bit-identical; (d) a run stopped at step 15 and
+   resumed from ``last.ckpt`` logs each sample of epoch 1 once and ends on
+   the uninterrupted run's weights. Then the step with and without the
+   logger, its device busy time over a profiled window, the host's work per
+   step, a checkpoint, peak memory, and phase 8's bare step beside them.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -240,12 +252,13 @@ def set_fused(flow, policy):
 
 
 def slice_phase(flow, frames, n_steps, round_trip_frames=None,
-                ldj_slack=None):
+                ldj_slack=None, record=None):
     """The map against the float64 unfused path, the counted main path (a
     no-grad evaluation, then the training steps) and a round trip, on the
     frames that ``round_trip_frames`` selects (all by default).
     ``ldj_slack(x, y)``, where given, is each frame's rounding allowance
-    on log_det_J besides MAP_TOL."""
+    on log_det_J besides MAP_TOL. ``record``, where given, receives the
+    steps' losses under ``'losses'``."""
     from tfep_tpu_torch.loss import boltzmann_kl_div_loss
     from tfep_tpu_torch.nn.flows import SequentialFlow
     from tfep_tpu_torch.ops.spline import LAUNCHES
@@ -295,6 +308,8 @@ def slice_phase(flow, frames, n_steps, round_trip_frames=None,
         losses.append(float(train_step().detach()))
         counts.append((LAUNCHES.forward, LAUNCHES.backward))
     launches = {'forward': LAUNCHES.forward, 'backward': LAUNCHES.backward}
+    if record is not None:
+        record['losses'] = losses
 
     if counts[0] != (N_LAYERS, 0):
         raise AssertionError(f'map evaluation launched {counts[0]}')
@@ -519,19 +534,10 @@ def _timed_build(build):
         return error
 
 
-def profile_phase(train_step, step_ms, smi, n=5, batch=B):
-    """Device time of the training step by kernel, from torch.profiler:
-    the busy share of the step and the time by kind of kernel."""
+def kernel_kinds(prof):
+    """``{kind: (kernels, us)}``: the device time of a torch.profiler
+    profile by kind of kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(min(n, 3)):
-        train_step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            train_step()
-        torch.cuda.synchronize()
     kinds = {}
     for event in prof.events():
         if event.device_type != DeviceType.CUDA:
@@ -551,6 +557,22 @@ def profile_phase(train_step, step_ms, smi, n=5, batch=B):
             kind = 'other elementwise and reductions'
         count, us = kinds.get(kind, (0, 0.0))
         kinds[kind] = (count + 1, us + event.time_range.elapsed_us())
+    return kinds
+
+
+def profile_phase(train_step, step_ms, smi, n=5, batch=B):
+    """Device time of the training step by kernel, from torch.profiler:
+    the busy share of the step and the time by kind of kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(min(n, 3)):
+        train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            train_step()
+        torch.cuda.synchronize()
+    kinds = kernel_kinds(prof)
     busy_ms = sum(us for _, us in kinds.values()) / n / 1e3
     lines = [smi, f'training step, batch {batch}, {n} steps profiled; '
              f'unprofiled step {step_ms:.3f} ms']
@@ -566,6 +588,7 @@ def profile_phase(train_step, step_ms, smi, n=5, batch=B):
     say('\n'.join('  ' + line for line in lines))
     say(prof.key_averages().table(sort_by='self_device_time_total',
                                   row_limit=30, max_name_column_width=70))
+    return busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1151,19 +1174,31 @@ def rotation_error(frames):
     return (r32.double() - r64).abs().amax(dim=(1, 2))
 
 
-def cartesian_phase(device, smi):
-    """Phase 8: K1/K2 at F = 90, the stack, its checks, times, profile."""
+def cartesian_phase(device, smi, handoff=None):
+    """Phase 8: K1/K2 at F = 90, the stack, its checks, times, profile.
+
+    ``handoff``, where given, receives what phase 9 holds the app layer
+    against: the weights before training (``state``), the frames, the
+    untrained map on them (``y``, ``log_det_J``), the first step's loss
+    and the step's device busy time."""
     from tfep_tpu_torch.ops import spline as fs
     errors = kernel_phase(device, CART_F)
     flow, frames = build_cartesian(device)
+    if handoff is not None:
+        with torch.no_grad():
+            y, ldj = flow(frames)
+        handoff.update(state={k: v.detach().clone()
+                              for k, v in flow.state_dict().items()},
+                       frames=frames, y=y, log_det_J=ldj)
     frame_phase(flow, frames)
     rotation_err = rotation_error(frames)
     conditioned = rotation_err <= ROTATION_TOL
     say(f'  {int((~conditioned).sum())} of {frames.shape[0]} frames take a '
         f'float32 frame rotation more than {ROTATION_TOL:g} off float64\'s '
         f'(at most {float(rotation_err.max()):.3e})')
+    record = {}
     launches, train_step = slice_phase(flow, frames, N_STEPS, conditioned,
-                                       radius_slack)
+                                       radius_slack, record)
     reference = copy.deepcopy(flow).double()
     set_fused(reference, 'never')
     round_trip(reference, frames[~conditioned].double(),
@@ -1190,9 +1225,300 @@ def cartesian_phase(device, smi):
             f'({nbytes / 1e6:.1f} MB); [{smi}]')
     del sets
     times = step_times(flow, frames, train_step, smi)
-    profile_phase(train_step, times['step_ms'], smi)
+    busy_ms = profile_phase(train_step, times['step_ms'], smi)
+    if handoff is not None:
+        handoff.update(first_loss=record['losses'][0], busy_ms=busy_ms)
     return dict(errors=errors, launches=launches, kernel_ms=kernel_ms,
                 **times)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the app layer, the entry point users call. The port's
+# CartesianMAFMap on phase 8's configuration, trained through Trainer.fit.
+# ---------------------------------------------------------------------------
+
+# 10 batches of 4096 frames.
+APP_FRAMES = 10 * B
+APP_EPOCHS = 2
+APP_STEPS = APP_EPOCHS * APP_FRAMES // B
+APP_CRASH_STEP = 15
+# Trainer.fit's steps between the two unprofiled runs whose difference
+# times a step (set-up, first steps and the end cancel out).
+APP_TIMED_STEPS = 20
+# The map against phase 8's hand-built stack on the same weights and
+# frames: the same modules and kernels in the same order, so the two agree
+# bit for bit; a difference under this fraction of max(1, max|y|) is
+# reported, not failed.
+APP_MAP_TOL = 1e-6
+# The first loss: the map reduces u = 0.5 kT |y|^2 by kT, where the
+# hand-built step takes 0.5 |y|^2 directly; the product and the quotient
+# round twice more in float32 (a few 1e-7 relative per frame).
+APP_LOSS_TOL = 1e-5
+# The resumed run replays the uninterrupted run's batches from its
+# checkpointed weights and Adam moments with the same float32 operations
+# in the same order, so its weights should equal it bit for bit. A
+# library's reduction that adds in another order on the second run would
+# change a gradient by about 1e-7 relative, and an Adam step by less than
+# lr = 1e-4 times that; 1e-6 absolute (the weights are about 0.05 to 2)
+# leaves room for that over 5 steps and fails on any real difference
+# (a replayed or skipped batch moves the weights by about lr = 1e-4).
+APP_RESUME_TOL = 1e-6
+
+
+class HarmonicPotential:
+    """u(y) = 0.5 kT |y|^2 in kcal/mol at 300 K: reduced by kT, phase 8's
+    0.5 |y|^2."""
+
+    def __init__(self):
+        from tfep_tpu_torch.units import ureg
+        self.energy_unit = ureg.kilocalorie_per_mole
+        self.kT = float(ureg.kT(300.0 * ureg.kelvin,
+                                self.energy_unit).magnitude)
+
+    def __call__(self, x, cell=None):
+        return 0.5 * self.kT * torch.sum(x * x, dim=-1)
+
+
+def app_orders(seed, n_epochs):
+    """The dataset indices of each step, as the trainer's sampler draws
+    them for ``shuffle_seed=seed``."""
+    from tfep_tpu_torch.io.sampler import StatefulBatchSampler
+
+    class Clock:
+        global_step = 0
+
+    sampler = StatefulBatchSampler(range(APP_FRAMES), batch_size=B,
+                                   shuffle=True, trainer=Clock(),
+                                   shuffle_seed=seed)
+    steps = []
+    for _ in range(n_epochs):
+        steps.extend(sampler)
+        Clock.global_step += len(sampler)
+    return steps
+
+
+def app_phase(device, smi, handoff):
+    """Phase 9: the port's CartesianMAFMap through Trainer.fit, checks
+    (a)-(d), host and device times."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.app import CartesianMAFMap, Trainer
+    from tfep_tpu_torch.io.topology import Topology
+    from tfep_tpu_torch.io.traj import System
+    from tfep_tpu_torch.loss import boltzmann_kl_div_loss
+    from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+    from tfep_tpu_torch.units import ureg
+
+    n_mol = CART_ATOMS - CART_SOLVENT
+    topology = Topology(
+        names=[f'C{i}' for i in range(n_mol)] + ['OW'] * CART_SOLVENT,
+        resnames=['MOL'] * n_mol + ['SOL'] * CART_SOLVENT,
+        resids=[1] * n_mol + list(range(2, 2 + CART_SOLVENT)))
+    system = System(topology, cartesian_frames(APP_FRAMES).reshape(
+        -1, CART_ATOMS, 3))
+    work = tempfile.mkdtemp(prefix='tfep_app_')
+
+    def new_map(name, state=None):
+        spline = NeuralSplineTransformer(-3.0 * np.ones(CART_F),
+                                         3.0 * np.ones(CART_F), K,
+                                         device=device)
+        tfep_map = CartesianMAFMap(
+            potential_energy_func=HarmonicPotential(),
+            temperature=300.0 * ureg.kelvin, system=system, batch_size=B,
+            tfep_logger_dir_path=os.path.join(work, name, 'logs'),
+            mapped_atoms=list(range(1, n_mol)), conditioning_atoms=[0],
+            origin_atom=0, axes_atoms=[1, 2], pca_whitening=True,
+            n_maf_layers=N_LAYERS, flow_kwargs=dict(transformer=spline),
+            device=device, dtype=torch.float32)
+        tfep_map.setup()
+        if state is not None:
+            tfep_map.flow.load_state_dict(state, strict=True)
+        return tfep_map
+
+    def trainer(name, **kwargs):
+        kwargs.setdefault('max_epochs', APP_EPOCHS)
+        return Trainer(save_dir=os.path.join(work, name, 'ckpt'),
+                       shuffle=True, shuffle_seed=0, prefetch=True, **kwargs)
+
+    try:
+        state = handoff['state']
+        t0 = time.perf_counter()
+        tfep_map = new_map('a', state)
+        setup_s = time.perf_counter() - t0
+        say(f'  CartesianMAFMap on {APP_FRAMES} frames of {CART_ATOMS} atoms '
+            f'(System, float32), batch {B}: setup() {setup_s:.2f} s (PCA '
+            f'fit on {min(APP_FRAMES, tfep_map.pca_n_frames)} frames); the '
+            f'flow takes phase '
+            f'8\'s weights with load_state_dict(strict=True); {smi}')
+
+        # (a) The map's forward against phase 8's flow, same weights.
+        with torch.no_grad():
+            out = tfep_map.forward({'positions': handoff['frames']})
+        for label, ours, theirs in (('y', out['positions'], handoff['y']),
+                                    ('log_det_J', out['log_det_J'],
+                                     handoff['log_det_J'])):
+            err, rel = rel_err(ours.double(), theirs.double())
+            say(f'  (a) map.forward - phase 8 flow, {label}: max|diff| = '
+                f'{err:.3e}, {rel:.3e} of scale (tolerance {APP_MAP_TOL:g});'
+                f' bit-identical: {bool(torch.equal(ours, theirs))}')
+            if not rel <= APP_MAP_TOL:
+                raise AssertionError(f'(a) the map\'s {label} differs')
+
+        # (b) One Trainer step: the first loss of phase 8's step.
+        one = Trainer(save_dir=None, max_steps=1, shuffle=False)
+        one.fit(tfep_map)
+        ours, theirs = one.loss_history[0], handoff['first_loss']
+        diff = abs(ours - theirs) / max(1.0, abs(theirs))
+        say(f'  (b) first loss: Trainer.fit {ours:.9g}, phase 8 step '
+            f'{theirs:.9g}; difference {diff:.3e} of scale (tolerance '
+            f'{APP_LOSS_TOL:g})')
+        if not diff <= APP_LOSS_TOL:
+            raise AssertionError('(b) the first loss differs')
+        del tfep_map, one, out
+
+        # (c) Two epochs through Trainer.fit, counted and profiled.
+        tfep_map = new_map('c', state)
+        fit = trainer('c', checkpoint_every_n_steps=10,
+                      profile_dir=os.path.join(work, 'c', 'profile'),
+                      profile_steps=(3, 9))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        fit.fit(tfep_map)
+        torch.cuda.synchronize()
+        launches = (LAUNCHES.forward, LAUNCHES.backward)
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.asarray(fit.loss_history)
+        say(f'  (c) Trainer(max_epochs={APP_EPOCHS}, shuffle_seed=0, '
+            f'prefetch=True, checkpoint_every_n_steps=10): '
+            f'{fit.global_step} steps, K1/K2 launches {launches} '
+            f'({launches[0] / fit.global_step:g}/'
+            f'{launches[1] / fit.global_step:g} per step); losses '
+            f'{losses[0]:.6g} -> {losses[-1]:.6g}')
+        if fit.global_step != APP_STEPS or len(losses) != APP_STEPS:
+            raise AssertionError('(c) the trainer did not take 20 steps')
+        if launches != (N_LAYERS * APP_STEPS, N_LAYERS * APP_STEPS):
+            raise AssertionError(f'(c) K1/K2 launched {launches}')
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError('(c) a loss is not finite')
+        expected = app_orders(0, APP_EPOCHS)
+        logger = tfep_map.tfep_logger
+        for step, indices in enumerate(expected):
+            rows = logger.read_train_tensors(step_idx=step)
+            if not (np.array_equal(rows['dataset_sample_index'], indices)
+                    and np.all(np.isfinite(rows['potential']))
+                    and np.all(np.isfinite(rows['log_det_J']))):
+                raise AssertionError(f'(c) step {step} lacks its log rows')
+        say(f'  (c) every step\'s {B} rows in tfep_logger.read_train_tensors'
+            f', in the sampler\'s order for shuffle_seed=0, finite')
+        batch = tfep_map.batch_to_device(tfep_map.host_tensors(
+            tfep_map.dataset.get_batch(np.arange(B))))
+        with torch.no_grad():
+            y = tfep_map.forward(batch)['positions']
+        if not torch.equal(y[:, 3 * n_mol:], batch['positions'][:, 3 * n_mol:]):
+            raise AssertionError('(c) a fixed atom moved')
+        say(f'  (c) fixed atoms {n_mol}-{CART_ATOMS - 1} bit-identical '
+            'through tfep_map.forward after training')
+
+        # Times of (c): the profiled window, the host's work, a checkpoint.
+        window = fit.profiled_step_times
+        window_ms = 1e3 * sum(window) / len(window)
+        kinds = kernel_kinds(fit.profile)
+        busy_ms = sum(us for _, us in kinds.values()) / len(window) / 1e3
+        ckpt_bytes = os.path.getsize(fit.checkpoint_path)
+        checkpoint_ms = 1e3 * (fit.host_seconds['checkpoint'][0]
+                               / fit.host_seconds['checkpoint'][1])
+        trained = [p.detach().clone() for p in tfep_map.flow.parameters()]
+        del tfep_map, fit, batch, y
+
+        # Trainer.fit's step unprofiled, with the logger and without: the
+        # difference of two runs of different length. The host's work per
+        # call comes from the longer run with the logger.
+        walls = {}
+        for logger in (True, False):
+            for steps in (APP_TIMED_STEPS, 2 * APP_TIMED_STEPS):
+                tfep_map = new_map(f'timed{steps}', state)
+                if not logger:
+                    tfep_map._tfep_logger_dir_path = None
+                timed = Trainer(save_dir=None, max_steps=steps,
+                                shuffle=True, shuffle_seed=0, prefetch=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timed.fit(tfep_map)
+                torch.cuda.synchronize()
+                walls[logger, steps] = time.perf_counter() - t0
+                if logger:
+                    host = {name: 1e3 * total / calls for name, (total, calls)
+                            in timed.host_seconds.items()}
+                del tfep_map, timed
+        step_ms, nolog_ms = (
+            1e3 * (walls[logger, 2 * APP_TIMED_STEPS]
+                   - walls[logger, APP_TIMED_STEPS]) / APP_TIMED_STEPS
+            for logger in (True, False))
+        bare_ms, bare_busy = handoff['step_ms'], handoff['busy_ms']
+        say(f'  Trainer.fit step: {step_ms:.3f} ms unprofiled ((fit of '
+            f'{2 * APP_TIMED_STEPS} steps - fit of {APP_TIMED_STEPS} steps) /'
+            f' {APP_TIMED_STEPS}), {B / step_ms * 1e3:.0f} frames/s; '
+            f'without the logger {nolog_ms:.3f} ms, '
+            f'{B / nolog_ms * 1e3:.0f} frames/s; phase 8\'s bare step in this '
+            f'run {bare_ms:.3f} ms, {B / bare_ms * 1e3:.0f} frames/s; {smi}')
+        say(f'  Trainer.fit profiled window (steps 3-8, torch.profiler on): '
+            f'{window_ms:.3f} ms per step; device busy {busy_ms:.3f} ms per '
+            f'step (phase 8\'s bare step {bare_busy:.3f} ms), idle share '
+            f'{1.0 - busy_ms / step_ms:.3f} of the unprofiled step '
+            f'({1.0 - busy_ms / nolog_ms:.3f} without the logger, '
+            f'{1.0 - bare_busy / bare_ms:.3f} for phase 8), '
+            f'{1.0 - busy_ms / window_ms:.3f} of the profiled window; '
+            f'{smi}')
+        for kind, (count, us) in sorted(kinds.items(),
+                                        key=lambda kv: -kv[1][1]):
+            say(f'    {kind}: {us / len(window) / 1e3:.3f} ms per step, '
+                f'{count / len(window):.0f} kernels per step')
+        say(f'  host ms per call, unprofiled run of {2 * APP_TIMED_STEPS} '
+            'steps: ' + ', '.join(f'{name} {ms:.3f}'
+                                  for name, ms in host.items())
+            + f' (read on the prefetch thread); checkpoint save '
+            f'{checkpoint_ms:.1f} ms for {ckpt_bytes / 1e6:.1f} MB; peak '
+            f'memory {peak / 2**20:.1f} MiB; {smi}')
+
+        # (d) Stopped at step 15, resumed from last.ckpt.
+        crashed = trainer('d', max_steps=APP_CRASH_STEP,
+                          checkpoint_every_n_steps=5)
+        crashed.fit(new_map('d', state))
+        resumed_map = new_map('d')
+        resumed = trainer('d', checkpoint_every_n_steps=5)
+        resumed.fit(resumed_map, resume=True)
+        rows = resumed_map.tfep_logger.read_train_tensors(epoch_idx=1)
+        seen = np.sort(rows['dataset_sample_index'])
+        if not (resumed.global_step == APP_STEPS
+                and len(resumed.loss_history) == APP_STEPS - APP_CRASH_STEP
+                and np.array_equal(seen, np.arange(APP_FRAMES))):
+            raise AssertionError('(d) the resumed run does not cover epoch 1 '
+                                 'once')
+        worst, identical = 0.0, True
+        for a, b in zip(resumed_map.flow.parameters(), trained):
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            identical &= bool(torch.equal(a.detach(), b))
+        say(f'  (d) stopped at step {APP_CRASH_STEP}, resumed from last.ckpt:'
+            f' {len(resumed.loss_history)} more steps, epoch 1\'s '
+            f'{APP_FRAMES} samples each logged once; final weights against '
+            f'the uninterrupted run of (c): max|diff| {worst:.3e} '
+            f'(tolerance {APP_RESUME_TOL:g}), bit-identical: {identical}')
+        if not worst <= APP_RESUME_TOL:
+            raise AssertionError('(d) the resumed weights differ')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(setup_s=setup_s, step_ms=step_ms,
+                frames_per_s=B / step_ms * 1e3, step_ms_without_logger=nolog_ms,
+                window_ms=window_ms,
+                busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+                bare_step_ms=bare_ms, bare_busy_ms=bare_busy,
+                host_ms=host, checkpoint_ms=checkpoint_ms,
+                checkpoint_bytes=ckpt_bytes, peak_bytes=peak,
+                launches=launches, resume_max_diff=worst)
 
 
 def main():
@@ -1253,7 +1579,15 @@ def main():
 
     say('[8] the Cartesian reference-frame slice: the MAF inside the '
         'CartesianMAFMap stack, K1/K2 at F=90')
-    cart = cartesian_phase(device, smi)
+    handoff = {}
+    cart = cartesian_phase(device, smi, handoff)
+    handoff.update(step_ms=cart['step_ms'])
+    torch.cuda.empty_cache()
+
+    say('[9] the entry point: the port\'s CartesianMAFMap on phase 8\'s '
+        'configuration, trained through Trainer.fit')
+    app = app_phase(device, smi, handoff)
+    del handoff
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -1303,6 +1637,7 @@ def main():
                     'cnf': cnf_times,
                     'cartesian': {k: v for k, v in cart.items()
                                   if k != 'errors'},
+                    'app': app,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -3,12 +3,12 @@
 A small JAX ``CartesianMAFMap`` (10 atoms, fixed atoms between mapped
 ones, an origin atom, two axes atoms, PCA whitening, 2 spline-MAF layers)
 is set up as ``tests/app/test_maps.py`` sets one up, and ``setup()`` builds
-its flow. The port has no app layer yet, so the test builds the same stack
-by hand from the port's flows, with the JAX map's own index sets and the
-same frames for the PCA fit. Loading every leaf of the JAX flow with
-``carry`` (no key missing or extra) shows that the two stacks have the
-same structure; then the map, its inverse and three AdamW steps agree in
-float64 on the CPU.
+its flow. The port's stack is built twice: by hand from the port's flows,
+with the JAX map's own index sets and the same frames for the PCA fit, and
+by the port's own ``CartesianMAFMap.setup()`` on the same system. Loading
+every leaf of the JAX flow with ``carry`` (no key missing or extra) shows
+that each has the JAX stack's structure; then the map, its inverse and
+three AdamW steps agree in float64 on the CPU.
 """
 
 import jax
@@ -24,7 +24,10 @@ from tfep_tpu.io.traj import System
 from tfep_tpu.nn.module import apply_updates, filter_value_and_grad, partition
 from tfep_tpu.nn.transformers import NeuralSplineTransformer as JaxSpline
 from tfep_tpu.units import ureg
+from tfep_tpu_torch.app import CartesianMAFMap as PortCartesianMAFMap
 from tfep_tpu_torch.convert import torch_name
+from tfep_tpu_torch.io.topology import Topology as PortTopology
+from tfep_tpu_torch.io.traj import System as PortSystem
 from tfep_tpu_torch.loss import boltzmann_kl_div_loss
 from tfep_tpu_torch.nn.conditioners.made import generate_degrees
 from tfep_tpu_torch.nn.flows import (
@@ -33,6 +36,7 @@ from tfep_tpu_torch.nn.flows import (
 )
 from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
 from tfep_tpu_torch.ops import spline as ops_spline
+from tfep_tpu_torch.units import ureg as port_ureg
 from tfep_tpu_torch.utils.misc import atom_to_flattened_indices
 
 from test_torch_common import (
@@ -166,7 +170,12 @@ def test_structure_and_pca_fit(stacks):
 
 def test_map_and_three_adamw_steps_match_jax(stacks):
     flow_j, stack, frames = stacks
-    stack = carry(flow_j, stack)
+    _check_against_jax(flow_j, carry(flow_j, stack), frames)
+
+
+def _check_against_jax(flow_j, stack, frames):
+    """The carried stack's map, inverse and three AdamW steps against the
+    JAX flow's."""
     assert stack.n_parameters() == flow_j.n_parameters()
     x = frames[:BATCH]
 
@@ -219,3 +228,56 @@ def test_map_and_three_adamw_steps_match_jax(stacks):
         close(param, trained[name], ATOL)
     for name, buf in stack.named_buffers():
         close(buf, trained[name], atol=0.0)
+
+
+class _PortPotential:
+    energy_unit = port_ureg.kilocalorie_per_mole
+
+    def __call__(self, x, cell=None):
+        return torch.sum(x, dim=-1)
+
+
+@pytest.fixture(scope='module')
+def map_stack(tmp_path_factory, stacks):
+    """The stack of the port's own CartesianMAFMap.setup(), on the same
+    system and with the same arguments as the JAX map."""
+    n_mapped = 3 * len(MAPPED) - 3
+    spline = NeuralSplineTransformer(-3.0 * np.ones(n_mapped),
+                                     3.0 * np.ones(n_mapped), N_BINS,
+                                     **ON_CPU)
+    topology = PortTopology(names=[f'C{i}' for i in range(N_ATOMS)],
+                            elements=['C'] * N_ATOMS,
+                            resnames=['MOL'] * N_ATOMS, resids=[1] * N_ATOMS)
+    tfep_map = PortCartesianMAFMap(
+        potential_energy_func=_PortPotential(),
+        temperature=300.0 * port_ureg.kelvin,
+        system=PortSystem(topology, _positions()), batch_size=BATCH,
+        tfep_logger_dir_path=str(tmp_path_factory.mktemp('port') / 'logs'),
+        mapped_atoms=MAPPED, conditioning_atoms=CONDITIONING,
+        origin_atom=ORIGIN, axes_atoms=AXES, pca_whitening=True,
+        n_maf_layers=N_LAYERS, flow_kwargs=dict(transformer=spline),
+        **ON_CPU)
+    tfep_map.setup()
+    return tfep_map.flow
+
+
+def test_map_setup_builds_the_jax_stack(stacks, map_stack):
+    flow_j, hand_built, _ = stacks
+    state = jax_state(flow_j)
+    assert set(map(torch_name, state)) == set(
+        dict(map_stack.named_parameters())) | set(
+        dict(map_stack.named_buffers()))
+    # The map's own PCA fit and index buffers, before any carry, equal the
+    # JAX map's and the hand-built stack's.
+    hand_built_buffers = dict(hand_built.named_buffers())
+    for name, buf in map_stack.named_buffers():
+        close(buf, hand_built_buffers[name])
+    for name in ('mean', 'whitening_matrix', 'blackening_matrix',
+                 'whitening_log_det_J'):
+        close(getattr(map_stack.flow.flow.flow, name),
+              state[f'.flow.flow.flow.{name}'])
+
+
+def test_map_setup_stack_matches_jax(stacks, map_stack):
+    flow_j, _, frames = stacks
+    _check_against_jax(flow_j, carry(flow_j, map_stack), frames)

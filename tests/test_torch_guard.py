@@ -8,7 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from tfep_tpu_torch.app import CartesianMAFMap, TFEPMapBase
 from tfep_tpu_torch.device import resolve_device
+from tfep_tpu_torch.io.topology import Topology
+from tfep_tpu_torch.io.traj import System
 from tfep_tpu_torch.nn.conditioners.made import MADE
 from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics
 from tfep_tpu_torch.nn.embeddings import (
@@ -22,10 +25,17 @@ from tfep_tpu_torch.nn.masked import MaskedLinear
 from tfep_tpu_torch.nn.transformers import (
     NeuralSplineTransformer, VolumePreservingShiftTransformer,
 )
+from tfep_tpu_torch.units import ureg
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'tfep_tpu_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
+
+
+def _map_args():
+    system = System(Topology(names=['C0', 'C1', 'C2']), np.zeros((4, 3, 3)))
+    return dict(potential_energy_func=lambda x: x.sum(-1),
+                temperature=300.0 * ureg.kelvin, system=system)
 
 
 def _imported_roots(path):
@@ -70,6 +80,8 @@ def no_card(monkeypatch):
     lambda: OrientedFlow.create(torch.nn.Identity(), 9),
     lambda: PCAWhitenedFlow.create(
         torch.nn.Identity(), np.random.default_rng(0).normal(size=(8, 3))),
+    lambda: TFEPMapBase(**_map_args()),
+    lambda: CartesianMAFMap(**_map_args(), n_maf_layers=2),
 ])
 def test_entry_points_without_device_raise(no_card, entry_point):
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -87,6 +99,13 @@ def test_explicit_cpu_device_cnf(no_card):
                                    device='cpu', pairwise='fused')
     flow = ContinuousFlow.create(dynamics, device='cpu')
     assert all(p.device.type == 'cpu' for p in flow.parameters())
+
+
+def test_explicit_cpu_device_map(no_card):
+    tfep_map = CartesianMAFMap(**_map_args(), n_maf_layers=2, device='cpu',
+                               tfep_logger_dir_path=None)
+    tfep_map.setup()
+    assert all(p.device.type == 'cpu' for p in tfep_map.flow.parameters())
 
 
 def test_compute_dtype_is_not_ported():

@@ -10,6 +10,6 @@ Entry points put their tensors on ``cuda`` unless the caller passes
 ``device='cpu'``; without a card and without ``device`` they raise.
 """
 
-from tfep_tpu_torch import nn, ops, utils  # noqa: F401
+from tfep_tpu_torch import app, io, nn, ops, units, utils  # noqa: F401
 from tfep_tpu_torch.device import resolve_device  # noqa: F401
 from tfep_tpu_torch.loss import boltzmann_kl_div_loss, BoltzmannKLDivLoss  # noqa: F401

@@ -1,0 +1,9 @@
+"""App layer: trainer and TFEP maps.
+
+Port of ``tfep_tpu/app``. Not ported yet: ``ContinuousEGNNMap`` and
+``MixedMAFMap``.
+"""
+
+from tfep_tpu_torch.app.trainer import Trainer, load_map_from_checkpoint  # noqa: F401
+from tfep_tpu_torch.app.base import TFEPMapBase  # noqa: F401
+from tfep_tpu_torch.app.cartesianmaf import CartesianMAFMap  # noqa: F401

@@ -1,0 +1,570 @@
+"""Training loop with exact mid-epoch resume.
+
+Port of ``tfep_tpu/app/trainer.py``. The trainer owns the optimization loop
+(a ``torch.optim`` optimizer), checkpointing of the flow, the optimizer,
+the sampler's seed and the global step, and per-step TFEP logging. Each
+step is one forward/backward/update on the map's device; the host moves
+batches and writes logs while the device works.
+
+Resume semantics: restarting from a mid-epoch checkpoint replays the same
+epoch permutation and visits exactly the unseen batches.
+
+Deferred logging: a step's aux tensors are copied into pinned host memory
+without blocking, and read only after the next step has been launched, so
+the host writes step k-1's log rows while the card runs step k. Only a
+checkpoint (which acknowledges its step) and the end of the run wait for
+the last step.
+
+Not ported yet: ``sharding`` (data parallelism) and ``engine_overlap``
+(the pipelined external engine); setting either raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from tfep_tpu_torch.io.sampler import StatefulBatchSampler
+
+__all__ = ['Trainer', 'load_map_from_checkpoint', 'default_optimizer']
+
+# Bump when the checkpoint layout changes incompatibly. Loaders accept any
+# version <= current; newer files raise a clear error.
+CHECKPOINT_FORMAT_VERSION = 1
+
+
+def default_optimizer(params) -> torch.optim.Optimizer:
+    """AdamW with the JAX package's default, ``optax.adamw(1e-4)``: its
+    weight decay is 1e-4 (``torch.optim.AdamW``'s own default is 0.01)."""
+    return torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4, eps=1e-8)
+
+
+class Trainer:
+    """Train a TFEP map.
+
+    Parameters
+    ----------
+    save_dir : str, optional
+        Directory for checkpoints. ``None`` disables checkpointing.
+    max_epochs, max_steps : int, optional
+        Stop conditions (whichever comes first).
+    optimizer : callable, optional
+        A factory ``params -> torch.optim.Optimizer``, called once per
+        :meth:`fit` on the flow's trainable parameters (so that a resumed
+        run can rebuild the optimizer before loading its state). Defaults
+        to :func:`default_optimizer`.
+    checkpoint_every_n_steps : int, optional
+        Write ``last.ckpt`` every N steps (default 1).
+    shuffle : bool, optional
+        Shuffle batches each epoch through the stateful sampler.
+    shuffle_seed : int, optional
+        Base seed for the per-epoch shuffles. ``None`` (default) draws
+        each epoch's permutation from OS entropy; an int makes the whole
+        batch-order sequence reproducible run-to-run (see
+        :class:`tfep_tpu_torch.io.sampler.StatefulBatchSampler`).
+    prefetch : bool, optional
+        Read the next batch (``dataset.get_batch`` and the copy into
+        pinned memory) on a background thread while the current step
+        runs. Identical math and resume semantics either way.
+    drop_last : bool, optional
+        Drop the final incomplete batch of each epoch.
+    sharding : optional
+        Data parallelism; not ported yet (raises ``NotImplementedError``).
+    log_every_n_steps : int, optional
+        Print ``epoch/step/loss`` every N optimization steps; 0 disables
+        console output. The loss of every step is recorded in
+        :attr:`loss_history` regardless.
+    engine_overlap : bool, optional
+        The pipelined external-engine loop; not ported yet (raises
+        ``NotImplementedError``).
+    profile_dir : str, optional
+        Trace steps ``profile_steps`` with ``torch.profiler`` and write the
+        trace to ``profile_dir/trace.json`` (Chrome/Perfetto format). The
+        profile stays in :attr:`profile`, and each profiled step's time
+        (from one step's start to the next's, on the card's clock when
+        the map is on a card) in :attr:`profiled_step_times`.
+    profile_steps : (int, int), optional
+        Half-open ``[start, stop)`` global-step window to trace.
+
+    Attributes
+    ----------
+    host_seconds : dict
+        ``{name: [seconds, calls]}`` of the host's work in :meth:`fit`:
+        ``read`` (``get_batch`` and the copy into pinned memory, on the
+        prefetch thread when ``prefetch``), ``to_device`` (enqueuing the
+        copy to the device), ``step`` (enqueuing forward, backward and
+        update), ``wait`` (waiting for a finished step's aux), ``log``
+        (the logger and the loss channel) and ``checkpoint``.
+    """
+
+    CHECKPOINT_NAME = 'last.ckpt'
+
+    def __init__(self, save_dir: Optional[str] = None,
+                 max_epochs: Optional[int] = None,
+                 max_steps: Optional[int] = None,
+                 optimizer: Optional[Callable] = None,
+                 checkpoint_every_n_steps: int = 1,
+                 shuffle: bool = True,
+                 shuffle_seed: Optional[int] = None,
+                 prefetch: bool = False,
+                 drop_last: bool = False,
+                 sharding=None,
+                 log_every_n_steps: int = 0,
+                 engine_overlap: bool = False,
+                 profile_dir: Optional[str] = None,
+                 profile_steps: tuple = (2, 5)):
+        if max_epochs is None and max_steps is None:
+            raise ValueError('Set at least one of max_epochs/max_steps.')
+        if sharding is not None:
+            raise NotImplementedError(
+                'sharding (data parallelism) is not ported to '
+                'tfep_tpu_torch yet.')
+        if engine_overlap:
+            raise NotImplementedError(
+                'engine_overlap is not ported to tfep_tpu_torch yet.')
+        self.save_dir = save_dir
+        self.max_epochs = max_epochs
+        self.max_steps = max_steps
+        self.optimizer = (default_optimizer if optimizer is None
+                          else optimizer)
+        self.checkpoint_every_n_steps = checkpoint_every_n_steps
+        self.shuffle = shuffle
+        self.shuffle_seed = shuffle_seed
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.log_every_n_steps = log_every_n_steps
+
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
+        self.profile = None
+
+        self.global_step = 0
+        self.current_epoch = 0
+        self.loss_history: list = []
+        self.profiled_step_times: list = []
+        self.host_seconds: Dict[str, list] = {}
+        self._profiler = None
+        self._profile_marks: list = []
+        self._on_card = False
+
+    # ------------------------------------------------------------------ #
+    @property
+    def checkpoint_path(self) -> Optional[str]:
+        """Full path of ``last.ckpt``, or ``None`` when checkpointing is
+        disabled."""
+        if self.save_dir is None:
+            return None
+        return os.path.join(self.save_dir, self.CHECKPOINT_NAME)
+
+    def fit(self, tfep_map, resume: bool = False):
+        """Run the optimization loop on ``tfep_map``; returns its flow.
+
+        ``tfep_map`` implements the app contract: ``setup()``, ``dataset``,
+        ``batch_size``, ``flow`` (an ``nn.Module``, trained in place),
+        ``host_tensors``/``batch_to_device``,
+        ``training_step_fn(flow, batch) -> (loss, aux_dict)`` and
+        optionally ``log_train_tensors(aux, epoch_idx, batch_idx)``. With
+        ``resume``, training continues from ``last.ckpt`` when it exists.
+        """
+        tfep_map.setup()
+        self._on_card = tfep_map.device.type == 'cuda'
+        if getattr(tfep_map, 'trainer', None) is None:
+            tfep_map.trainer = self
+        # The embedded map config is immutable across a fit: test-pickle it
+        # (which may include an in-memory System) once, not per step.
+        self._map_config = _map_config_entries(tfep_map)
+
+        sampler = StatefulBatchSampler(
+            tfep_map.dataset, batch_size=tfep_map.batch_size,
+            shuffle=self.shuffle, drop_last=self.drop_last, trainer=self,
+            shuffle_seed=self.shuffle_seed)
+        n_batches = len(sampler)
+
+        flow = tfep_map.flow
+        params = [p for p in flow.parameters() if p.requires_grad]
+        optimizer = self.optimizer(params)
+        if resume:
+            self._load_checkpoint(flow, optimizer, sampler)
+
+        try:
+            pending = self._fit_loop(tfep_map, sampler, flow, optimizer,
+                                     params, n_batches)
+        finally:
+            self._stop_profiler()
+        if pending is not None:
+            self._consume_aux(tfep_map, *pending)
+        return flow
+
+    def _fit_loop(self, tfep_map, sampler, flow, optimizer, params,
+                  n_batches):
+        pending = None  # (host aux, its event, epoch_idx, batch_idx)
+        stop = False
+        while not stop:
+            if self.max_epochs is not None and \
+                    self.current_epoch >= self.max_epochs:
+                break
+            # Pre-check so resuming an already-finished run trains zero
+            # extra steps (the in-loop check only fires after a step).
+            if self.max_steps is not None and \
+                    self.global_step >= self.max_steps:
+                break
+            epoch_idx = self.current_epoch
+            for host_batch in self._epoch_batches(tfep_map, sampler):
+                batch_idx = self.global_step % n_batches
+                batch = self._device_batch(tfep_map, host_batch,
+                                           step=self.global_step)
+
+                self._profile_tick()
+                aux, event = self._step(tfep_map, flow, optimizer, params,
+                                        batch)
+                # Per-sample TFEP logging + loss channel, deferred by one
+                # step: the host reads the previous step's aux while the
+                # device runs this one.
+                if pending is not None:
+                    self._consume_aux(tfep_map, *pending)
+                pending = (aux, event, epoch_idx, batch_idx)
+
+                self.global_step += 1
+                # Derived, not incremented at the epoch boundary: an
+                # epoch-boundary checkpoint must store the *next* epoch or
+                # a resume replays a full extra epoch.
+                self.current_epoch = self.global_step // n_batches
+                self._profile_tock()
+
+                if (self.checkpoint_path is not None
+                        and self.global_step % self.checkpoint_every_n_steps
+                        == 0):
+                    # Flush this step's log rows first: the checkpoint
+                    # acknowledges the step, so a crash right after must
+                    # not lose its per-sample work values (resume skips
+                    # the batch).
+                    self._consume_aux(tfep_map, *pending)
+                    pending = None
+                    with self._timed('checkpoint'):
+                        self._save_checkpoint(flow, optimizer, sampler,
+                                              tfep_map)
+
+                if self.max_steps is not None and \
+                        self.global_step >= self.max_steps:
+                    stop = True
+                    break
+            else:
+                continue
+            break
+        return pending
+
+    def _step(self, tfep_map, flow, optimizer, params, batch):
+        """Launch one optimization step; returns its aux on the host (still
+        being copied) and the event that marks the copy's end (``None``
+        off the card)."""
+        with self._timed('step'):
+            optimizer.zero_grad(set_to_none=True)
+            loss, aux = tfep_map.training_step_fn(flow, batch)
+            loss.backward()
+            # A parameter that the loss does not read has no gradient:
+            # torch's AdamW would skip it, optax decays it. Give it zeros.
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            optimizer.step()
+            return _aux_to_host(aux)
+
+    # ------------------------------------------------------------------ #
+    def _timed(self, name):
+        return _Timer(self.host_seconds, name)
+
+    # ------------------------------------------------------------------ #
+    # Profiler: a torch.profiler trace and each step's time over the
+    # configured global-step window.
+    # ------------------------------------------------------------------ #
+    def _profile_tick(self):
+        if self.profile_dir is None or not (
+                self.profile_steps[0] <= self.global_step
+                < self.profile_steps[1]):
+            return
+        if self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self._on_card:
+                torch.cuda.synchronize()
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.__enter__()
+            self._profile_marks = []
+        self._profile_marks.append(_mark(self._on_card))
+
+    def _profile_tock(self):
+        if self._profiler is not None and \
+                self.global_step >= self.profile_steps[1]:
+            self._stop_profiler()
+
+    def _stop_profiler(self):
+        if self._profiler is None:
+            return
+        end = _mark(self._on_card)
+        if self._on_card:
+            torch.cuda.synchronize()
+        self._profiler.__exit__(None, None, None)
+        marks = self._profile_marks + [end]
+        self.profiled_step_times.extend(
+            _seconds_between(a, b) for a, b in zip(marks, marks[1:]))
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._profiler.export_chrome_trace(
+            os.path.join(self.profile_dir, 'trace.json'))
+        self.profile, self._profiler = self._profiler, None
+
+    # ------------------------------------------------------------------ #
+    def _epoch_batches(self, tfep_map, sampler):
+        """Yield one epoch's batches as host tensors.
+
+        With ``prefetch=True`` a background thread reads one batch ahead:
+        batch k+1's read is submitted before batch k is yielded. The
+        sampler iterates on this thread, so the seeds are drawn exactly
+        as without prefetch; an early exit (``max_steps`` mid-epoch closes
+        the generator) waits for at most the one read in flight.
+        """
+        if not self.prefetch:
+            for indices in sampler:
+                yield self._read(tfep_map, indices)
+            return
+
+        with ThreadPoolExecutor(
+                max_workers=1,
+                thread_name_prefix='tfep-batch-prefetch') as pool:
+            pending = None
+            for indices in sampler:
+                future = pool.submit(self._read, tfep_map, indices)
+                if pending is not None:
+                    yield pending.result()
+                pending = future
+            if pending is not None:
+                yield pending.result()
+
+    def _read(self, tfep_map, indices):
+        with self._timed('read'):
+            return tfep_map.host_tensors(tfep_map.dataset.get_batch(indices))
+
+    def _device_batch(self, tfep_map, host_batch, step=None):
+        with self._timed('to_device'):
+            batch = tfep_map.batch_to_device(host_batch)
+        if step is not None and getattr(tfep_map, 'needs_global_step', False):
+            # Maps opt in to fold the step into stochastic state.
+            batch['global_step'] = step
+        return batch
+
+    def _consume_aux(self, tfep_map, aux, event, epoch_idx, batch_idx):
+        """Read a finished step's aux: TFEP logging + loss channel."""
+        if event is not None:
+            with self._timed('wait'):
+                event.synchronize()
+        with self._timed('log'):
+            if hasattr(tfep_map, 'log_train_tensors'):
+                tfep_map.log_train_tensors(aux, epoch_idx=epoch_idx,
+                                           batch_idx=batch_idx)
+            scalars = {name: float(value) for name, value in aux.items()
+                       if np.ndim(value) == 0}
+            loss = scalars.get('loss')
+            if loss is not None:
+                self.loss_history.append(loss)
+            if self.log_every_n_steps and loss is not None and \
+                    len(self.loss_history) % self.log_every_n_steps == 0:
+                extras = ' '.join(f'{k}={v:.6g}' for k, v in scalars.items()
+                                  if k != 'loss')
+                print(f'[tfep] epoch {epoch_idx} step '
+                      f'{len(self.loss_history)} loss={loss:.6g}'
+                      + (f' {extras}' if extras else ''), flush=True)
+
+    # ------------------------------------------------------------------ #
+    def _save_checkpoint(self, flow, optimizer, sampler, tfep_map=None):
+        os.makedirs(self.save_dir, exist_ok=True)
+        state = {
+            'format_version': CHECKPOINT_FORMAT_VERSION,
+            'flow_state': flow.state_dict(),
+            'optimizer_state': optimizer.state_dict(),
+            'global_step': self.global_step,
+            'current_epoch': self.current_epoch,
+            'sampler_state': sampler.state_dict(),
+        }
+        config = getattr(self, '_map_config', None)
+        state.update(_map_config_entries(tfep_map)
+                     if config is None else config)
+        tmp_path = self.checkpoint_path + '.tmp'
+        torch.save(state, tmp_path)
+        os.replace(tmp_path, self.checkpoint_path)
+
+    def _load_checkpoint(self, flow, optimizer, sampler):
+        path = self.checkpoint_path
+        if path is None or not os.path.isfile(path):
+            return
+        state = _read_checkpoint(path)
+        flow.load_state_dict(state['flow_state'])
+        optimizer.load_state_dict(state['optimizer_state'])
+        self.global_step = state['global_step']
+        self.current_epoch = state['current_epoch']
+        sampler.load_state_dict(state['sampler_state'])
+
+
+class _Timer:
+    """Adds the seconds of a ``with`` block to ``totals[name]``."""
+
+    def __init__(self, totals, name):
+        self.totals, self.name = totals, name
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+
+    def __exit__(self, *exc):
+        entry = self.totals.setdefault(self.name, [0.0, 0])
+        entry[0] += time.perf_counter() - self.start
+        entry[1] += 1
+
+
+def _mark(on_card: bool):
+    """A point in time: a recorded CUDA event on a card, else the host's
+    clock."""
+    if on_card:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+    return time.perf_counter()
+
+
+def _seconds_between(a, b) -> float:
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
+
+
+def _aux_to_host(aux: Dict):
+    """Detach every tensor of ``aux``; start copying those on a card into
+    pinned host memory without blocking. Returns the host dict and the
+    event that marks the copies' end (``None`` when nothing was on a
+    card)."""
+    host, on_card = {}, False
+    for name, value in aux.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+            if value.is_cuda:
+                pinned = torch.empty(value.shape, dtype=value.dtype,
+                                     pin_memory=True)
+                value = pinned.copy_(value, non_blocking=True)
+                on_card = True
+        host[name] = value
+    if not on_card:
+        return host, None
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _map_config_entries(tfep_map) -> Dict[str, Any]:
+    """Checkpoint entries embedding the map's constructor config.
+
+    Each hyperparameter is test-pickled individually; values that cannot
+    be serialized (e.g. live engine handles) are recorded by name so the
+    loader can demand them as overrides instead of failing opaquely.
+    """
+    hparams = getattr(tfep_map, 'hparams', None)
+    if tfep_map is None or hparams is None:
+        return {}
+    saved, unsaved = {}, []
+    for name, value in hparams.items():
+        try:
+            pickle.dumps(value)
+        except Exception:
+            unsaved.append(name)
+        else:
+            saved[name] = value
+    map_class = type(tfep_map)
+    return {
+        'map_class': f'{map_class.__module__}:{map_class.__qualname__}',
+        'map_hparams': saved,
+        'unsaved_hparams': unsaved,
+    }
+
+
+def _read_checkpoint(path: str) -> Dict[str, Any]:
+    """Load a checkpoint written by :class:`Trainer` onto the CPU and check
+    its version. ``weights_only=False``: the hyperparameters hold a
+    ``System`` and the potential."""
+    try:
+        state = torch.load(path, map_location='cpu', weights_only=False)
+    except (pickle.UnpicklingError, RuntimeError) as error:
+        raise ValueError(
+            f'{path!r} is not a checkpoint of tfep_tpu_torch (the JAX '
+            'package\'s pickled checkpoints are not read).') from error
+    version = state.get('format_version', 0)
+    if not isinstance(version, int) or version > CHECKPOINT_FORMAT_VERSION:
+        raise ValueError(
+            f'Checkpoint {path!r} has format version {version!r}, but this '
+            f'version of tfep_tpu_torch reads at most '
+            f'{CHECKPOINT_FORMAT_VERSION}. Upgrade the library to load it.')
+    return state
+
+
+def load_map_from_checkpoint(checkpoint_path: str, expected_class=None,
+                             **override_hparams):
+    """Reconstruct a trained TFEP map from a checkpoint of :class:`Trainer`.
+
+    The checkpoint (written with ``torch.save``) embeds the map's class and
+    constructor configuration, so a fresh process needs only the
+    checkpoint file. The map is rebuilt, ``setup()`` recreates the flow
+    structure, and the trained parameters are loaded into it. This reads
+    the port's own format only: the JAX package's pickled checkpoints are
+    not read.
+
+    Parameters
+    ----------
+    checkpoint_path : str
+        Path to a ``last.ckpt`` written by :class:`Trainer`.
+    expected_class : type, optional
+        Raise if the stored class is not this class or a subclass
+        (used by ``TFEPMapBase.load_from_checkpoint``).
+    **override_hparams
+        Replace stored hyperparameters; required for any listed in the
+        checkpoint's ``unsaved_hparams`` (values that could not be
+        pickled at save time).
+
+    Returns
+    -------
+    tfep_map
+        The reconstructed map with trained parameters in ``.flow``.
+    """
+    state = _read_checkpoint(checkpoint_path)
+    if 'map_class' not in state:
+        raise ValueError(
+            f'Checkpoint {checkpoint_path!r} does not embed the map '
+            'configuration. Rebuild the map manually and use '
+            'Trainer(..., save_dir=...).fit(map, resume=True).')
+
+    module_name, _, qualname = state['map_class'].partition(':')
+    map_class = importlib.import_module(module_name)
+    for attr in qualname.split('.'):
+        map_class = getattr(map_class, attr)
+    if expected_class is not None and not issubclass(map_class,
+                                                     expected_class):
+        raise ValueError(
+            f'Checkpoint {checkpoint_path!r} holds a '
+            f'{state["map_class"]}, not a {expected_class.__qualname__}.')
+
+    missing = [name for name in state.get('unsaved_hparams', ())
+               if name not in override_hparams]
+    if missing:
+        raise ValueError(
+            f'Checkpoint {checkpoint_path!r} could not serialize the '
+            f'hyperparameters {missing}; pass them as keyword overrides, '
+            f'e.g. load_map_from_checkpoint(path, {missing[0]}=...).')
+
+    hparams = {**state['map_hparams'], **override_hparams}
+    tfep_map = map_class(**hparams)
+    tfep_map.setup()
+    tfep_map.flow.load_state_dict(state['flow_state'])
+    return tfep_map

@@ -3,12 +3,8 @@
 Port of ``tfep_tpu/utils/misc.py``. Index bookkeeping (atom-role
 partitioning, fixed-atom removal) happens on the host with numpy when a
 model is built; the flattened <-> atom reshapes work on tensors and numpy
-arrays alike.
-
-Not ported yet: ``energies_array_to_numpy`` and ``forces_array_to_numpy``
-(with their aliases ``energies_array_to_tensor`` and
-``forces_array_to_tensor``) convert unit-carrying quantities, and so wait
-for the port of ``units.py``.
+arrays alike. ``energies_array_to_numpy`` and ``forces_array_to_numpy``
+strip the units of :mod:`tfep_tpu_torch.units` quantities.
 """
 
 from __future__ import annotations
@@ -25,7 +21,8 @@ import torch
 __all__ = [
     'atom_to_flattened', 'flattened_to_atom', 'atom_to_flattened_indices',
     'ensure_int_array', 'remove_and_shift_sorted_indices', 'temporary_cd',
-    'clear_directory',
+    'clear_directory', 'energies_array_to_numpy', 'forces_array_to_numpy',
+    'energies_array_to_tensor', 'forces_array_to_tensor',
 ]
 
 
@@ -106,6 +103,32 @@ def remove_and_shift_sorted_indices(
     return indices
 
 
+def energies_array_to_numpy(energies, energy_unit=None, dtype=None):
+    """Convert a Quantity of batch energies to a plain numpy array in ``energy_unit``."""
+    from tfep_tpu_torch.units import Quantity
+    if isinstance(energies, Quantity) and energy_unit is not None:
+        energies = energies.to(energy_unit)
+    magnitude = energies.magnitude if isinstance(energies, Quantity) else energies
+    return np.asarray(magnitude, dtype=dtype)
+
+
+def forces_array_to_numpy(forces, distance_unit=None, energy_unit=None,
+                          dtype=None):
+    """Convert a Quantity of forces (batch, n_atoms, 3) to flattened numpy.
+
+    Returns shape ``(batch, n_atoms*3)`` in units of energy_unit/distance_unit.
+    """
+    from tfep_tpu_torch.units import Quantity
+    if (energy_unit is None) != (distance_unit is None):
+        raise ValueError(
+            'Both or neither energy_unit and distance_unit must be passed.')
+    if isinstance(forces, Quantity) and energy_unit is not None:
+        forces = forces.to(energy_unit / distance_unit)
+    magnitude = forces.magnitude if isinstance(forces, Quantity) else forces
+    magnitude = np.asarray(magnitude, dtype=dtype)
+    return magnitude.reshape(magnitude.shape[0], -1)
+
+
 def clear_directory(dir_path):
     """Delete every entry inside ``dir_path`` (not the directory itself).
 
@@ -131,3 +154,8 @@ def temporary_cd(dir_path):
             yield
         finally:
             os.chdir(old)
+
+
+#: The JAX package's aliases of the same names (plain numpy arrays there too).
+energies_array_to_tensor = energies_array_to_numpy
+forces_array_to_tensor = forces_array_to_numpy
