@@ -67,6 +67,31 @@ Phases, each of which passes or exits non-zero:
    the uninterrupted run's weights. Then the step with and without the
    logger, its device busy time over a profiled window, the host's work per
    step, a checkpoint, peak memory, and phase 8's bare step beside them.
+10. The flagship map: the port's ``MixedMAFMap`` at the configuration of
+   ``bench.py``'s ``bench_mixed_jax`` (a 32-atom carbon helix chain with
+   0.05 A of noise, 40,960 frames in a ``System``, 6 MAF layers, 8 bins,
+   batch 4096, float32, phase 9's potential). (a) K1/K2 against their
+   plain version at F=30, the width of the map's one standard spline (the
+   angles); (b) the Z-matrix equal to the JAX map's (a literal below) and
+   the transformer's groups; (c) the float32 kernel path against the
+   float64 unfused path on the same weights, on the frames whose float32
+   frame rotation and Z-matrix angles are within CONDITION_TOL of
+   float64's (the others in float64); (d) one epoch through
+   ``Trainer.fit`` with prefetch and a checkpoint, K1/K2 counted at 6/6 per
+   step; (e) finite losses and every step's log rows in the sampler's
+   order; (f) a round trip. Then the step with and without the logger, its
+   device busy time and idle share, the conversion's device time and
+   kernels per step, K1/K2's times at F=30 and peak memory.
+11. The CNF map: the port's ``ContinuousEGNNMap`` at
+   ``benchmarks/cnf_bench.py``'s configuration, with
+   ``egnn_kwargs={'pairwise': 'pallas'}`` (the JAX package's name,
+   translated to ``'fused'``), on 1,024 frames of ``0.5 N(0, 1)``. (a) With
+   phase 6's weights and the map's probe, its forward equals phase 6's
+   flow; (b) 4 steps of ``Trainer.fit`` count K4/K5 at 256/128 per step
+   (K4 again in the checkpoint's recompute), finite losses; (c) two steps
+   on one batch draw different probes; (d) a run stopped after step 2 and
+   resumed ends on the uninterrupted run's weights. Then the step time and
+   its device busy time.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -1521,6 +1546,533 @@ def app_phase(device, smi, handoff):
                 launches=launches, resume_max_diff=worst)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the flagship map. The port's MixedMAFMap at the configuration
+# of bench.py's bench_mixed_jax (bench.py:219-262), trained through
+# Trainer.fit.
+# ---------------------------------------------------------------------------
+
+HELIX_ATOMS = 32
+MIXED_FRAMES = APP_FRAMES
+MIXED_BINS = 8
+# The Z-matrix the JAX package's MixedMAFMap builds for the helix (the
+# port's equals it: tests/test_torch_app_mixedmaf.py holds both to this
+# literal). One fragment grown from its centre, atom 15, with the axes
+# atoms 14 and 16.
+HELIX_Z_MATRIX = np.array([
+    [13, 14, 15, 16], [17, 16, 15, 14], [12, 13, 14, 15], [18, 17, 16, 15],
+    [11, 12, 13, 14], [19, 18, 17, 16], [10, 11, 12, 13], [20, 19, 18, 17],
+    [9, 10, 11, 12], [21, 20, 19, 18], [8, 9, 10, 11], [22, 21, 20, 19],
+    [7, 8, 9, 10], [23, 22, 21, 20], [6, 7, 8, 9], [24, 23, 22, 21],
+    [5, 6, 7, 8], [25, 24, 23, 22], [4, 5, 6, 7], [26, 25, 24, 23],
+    [3, 4, 5, 6], [27, 26, 25, 24], [2, 3, 4, 5], [28, 27, 26, 25],
+    [1, 2, 3, 4], [29, 28, 27, 26], [0, 1, 2, 3], [30, 29, 28, 27],
+    [31, 30, 29, 28]])
+# The mixed transformer's groups: distances (the 29 bonds, d01, d02),
+# angles (29 and a102) and torsions (29); the six kept-constant reference
+# DOFs are conditioning. Only the angle spline is in the standard
+# configuration, so K1/K2 run at F = 30.
+HELIX_GROUPS = (31, 30, 29)
+HELIX_DOFS = 96
+HELIX_LEVELS = 15
+MIXED_F = HELIX_GROUPS[1]
+# Trainer.fit's steps between the two unprofiled runs whose difference
+# times a step.
+MIXED_TIMED_STEPS = 10
+# The float32 map against the float64 unfused path is held at MAP_TOL on
+# the frames whose float32 conversion is well conditioned: the frame
+# rotation (arccos/arcsin of clipped cosines, reference_frame_rotation_
+# matrix) and the Z-matrix angles (arccos in cartesian_to_internal) within
+# CONDITION_TOL of float64's. A frame off by more carries that error into
+# the MAF's conditioning inputs, as in phase 8; it is held in float64
+# (finite, and its round trip) instead.
+CONDITION_TOL = 1e-6
+
+
+def helix_frames(n, rng):
+    """(n, 32, 3) frames of bench.py's helix chain: consecutive bond angles
+    about 63 degrees from collinear, 0.05 A of Gaussian noise."""
+    turns = np.arange(HELIX_ATOMS) * 1.2
+    base = np.stack([1.5 * np.cos(turns), 1.5 * np.sin(turns),
+                     0.3 * np.arange(HELIX_ATOMS)], axis=1)
+    return base[None] + 0.05 * rng.normal(size=(n, HELIX_ATOMS, 3))
+
+
+def conversion_error(conversion, frames):
+    """Per frame, how far the float32 conversion's ill-conditioned steps
+    are from float64: max|R32 - R64| of the frame rotation and the largest
+    |theta32 - theta64| of the Z-matrix angles."""
+    from tfep_tpu_torch.ops.zmatrix import cartesian_to_internal
+    from tfep_tpu_torch.utils.geometry import reference_frame_rotation_matrix
+    atoms = frames.double().reshape(frames.shape[0], -1, 3)
+    ref = atoms[:, conversion.cartesian_atom_indices[-3:]]
+    rel = ref[:, 1:] - ref[:, :1]
+    rotations, angles = [], []
+    for dtype in (torch.float32, torch.float64):
+        eye = torch.eye(3, dtype=dtype, device=frames.device)
+        rotations.append(reference_frame_rotation_matrix(
+            rel[:, 0].to(dtype), rel[:, 1].to(dtype), axis=eye[0],
+            plane_axis=eye[1], project_on_positive_axis=True).double())
+        angles.append(cartesian_to_internal(
+            atoms.to(dtype), conversion.z_matrix,
+            normalize_angles=False)[1].double())
+    return ((rotations[0] - rotations[1]).abs().amax(dim=(1, 2)),
+            (angles[0] - angles[1]).abs().amax(dim=1))
+
+
+def conversion_profile(conversion, frames, smi, n=5):
+    """The conversion's part of a training step, from torch.profiler:
+    cartesian_to_mixed forward (its outputs need no gradient: the data do
+    not depend on the weights) and mixed_to_cartesian forward and
+    backward, with the MAF's output standing in as a leaf."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        y, ldj, origin, rotation = conversion.cartesian_to_mixed(frames)
+        y = y.detach().requires_grad_()
+        x, ldj_back = conversion.mixed_to_cartesian(y, origin, rotation)
+        torch.autograd.backward((x, ldj_back),
+                                (torch.ones_like(x), torch.ones_like(ldj)))
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kinds = kernel_kinds(prof)
+    busy_ms = sum(us for _, us in kinds.values()) / n / 1e3
+    count = sum(c for c, _ in kinds.values()) / n
+    say(f'  conversion (cartesian_to_mixed + mixed_to_cartesian, forward '
+        f'and backward, {conversion.placement_schedule.n_levels} placement '
+        f'levels) at batch {frames.shape[0]}: device {busy_ms:.3f} ms in '
+        f'{count:.0f} kernels per step (torch.profiler); wall clock alone '
+        f'{wall_ms:.3f} ms; {smi}')
+    return dict(busy_ms=busy_ms, kernels=count, wall_ms=wall_ms)
+
+
+def mixed_phase(device, smi):
+    """Phase 10: the port's MixedMAFMap at bench_mixed_jax's
+    configuration, checks (a)-(f), times."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.app import MixedMAFMap, Trainer
+    from tfep_tpu_torch.io.topology import Topology
+    from tfep_tpu_torch.io.traj import System
+    from tfep_tpu_torch.ops import spline as fs
+    from tfep_tpu_torch.units import ureg
+
+    # (a) K1/K2 against their plain version at the angle spline's width.
+    errors = kernel_phase(device, MIXED_F)
+
+    topology = Topology(names=[f'C{i}' for i in range(HELIX_ATOMS)],
+                        elements=['C'] * HELIX_ATOMS,
+                        bonds=[(i, i + 1) for i in range(HELIX_ATOMS - 1)])
+    system = System(topology, helix_frames(
+        MIXED_FRAMES, np.random.default_rng(SEED)).astype(np.float32))
+    work = tempfile.mkdtemp(prefix='tfep_mixed_')
+
+    def new_map(name, state=None, logger=True):
+        tfep_map = MixedMAFMap(
+            potential_energy_func=HarmonicPotential(),
+            temperature=300.0 * ureg.kelvin, system=system, batch_size=B,
+            tfep_logger_dir_path=(os.path.join(work, name, 'logs')
+                                  if logger else None),
+            n_maf_layers=N_LAYERS, n_bins=MIXED_BINS, device=device,
+            dtype=torch.float32)
+        tfep_map.setup()
+        if state is not None:
+            tfep_map.flow.load_state_dict(state, strict=True)
+        return tfep_map
+
+    try:
+        t0 = time.perf_counter()
+        tfep_map = new_map('a')
+        setup_s = time.perf_counter() - t0
+        flow = tfep_map.flow
+        mixed = flow.flow[0].transformer
+        n_params = sum(p.numel() for p in flow.parameters())
+        say(f'  MixedMAFMap on {MIXED_FRAMES} frames of the {HELIX_ATOMS}-'
+            f'atom helix (System, float32), batch {B}, {N_LAYERS} MAF layers, '
+            f'{MIXED_BINS} bins: setup() {setup_s:.2f} s (Z-matrix, dataset '
+            f'pass for the spline domains); {n_params} parameters; MADE '
+            f'{flow.flow[0].conditioner.dimension_in} -> '
+            f'{flow.flow[0].conditioner.dimensions_hidden} -> '
+            f'{flow.flow[0].conditioner.dimension_out}; {smi}')
+
+        # (b) The Z-matrix and the transformer's groups.
+        groups = tuple(len(g) for g in mixed.indices)
+        levels = flow.placement_schedule.n_levels
+        same_z = np.array_equal(flow.z_matrix.cpu().numpy(), HELIX_Z_MATRIX)
+        say(f'  (b) Z-matrix of {flow.n_ic_atoms} rows equal to the JAX '
+            f'map\'s: {same_z}; mixed DOFs {flow.n_dofs_out}; transformer '
+            f'groups {groups} (distances, angles, torsions); {levels} '
+            'placement levels')
+        if not (same_z and groups == HELIX_GROUPS
+                and flow.n_dofs_out == HELIX_DOFS
+                and levels == HELIX_LEVELS):
+            raise AssertionError('(b) the map is not the JAX map\'s')
+
+        # Random weights: identity initialization zeroes the output gains.
+        generator = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for p in flow.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=generator).to(p))
+        state = {k: v.detach().clone() for k, v in flow.state_dict().items()}
+
+        # (c) The float32 kernel path against the float64 unfused path.
+        batch = tfep_map.batch_to_device(tfep_map.host_tensors(
+            tfep_map.dataset.get_batch(np.arange(B))))
+        frames = batch['positions']
+        rotation_err, angle_err = conversion_error(flow, frames)
+        conditioned = (rotation_err <= CONDITION_TOL) & (
+            angle_err <= CONDITION_TOL)
+        say(f'  {int((~conditioned).sum())} of {B} frames take a float32 '
+            f'frame rotation or Z-matrix angle more than {CONDITION_TOL:g} '
+            f'off float64\'s (rotation at most '
+            f'{float(rotation_err.max()):.3e}, angles at most '
+            f'{float(angle_err.max()):.3e})')
+        reference = copy.deepcopy(flow).double()
+        set_fused(reference, 'never')
+        with torch.no_grad():
+            y_k, ldj_k = flow(frames)
+            y_p, ldj_p = reference(frames.double())
+        for label, kern, plain in (('y', y_k, y_p),
+                                   ('log_det_J', ldj_k, ldj_p)):
+            if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()
+                    and within(label, '(c) map (conditioned frames)',
+                               'kernel path - float64 unfused path',
+                               kern[conditioned], plain[conditioned])):
+                raise AssertionError(f'(c) map {label} disagrees')
+        if not conditioned.all():
+            round_trip(reference, frames[~conditioned].double(),
+                       '(f) round trip of the other frames, float64')
+        del reference
+
+        # (f) A round trip of the float32 kernel path.
+        round_trip(flow, frames[conditioned], '(f) round trip')
+
+        # (d), (e) One epoch through Trainer.fit, counted and profiled.
+        del tfep_map, flow, batch
+        tfep_map = new_map('c', state)
+        fit = Trainer(save_dir=os.path.join(work, 'c', 'ckpt'), max_epochs=1,
+                      shuffle=True, shuffle_seed=0, prefetch=True,
+                      checkpoint_every_n_steps=MIXED_FRAMES // B,
+                      profile_dir=os.path.join(work, 'c', 'profile'),
+                      profile_steps=(3, 8))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.LAUNCHES.reset()
+        fit.fit(tfep_map)
+        torch.cuda.synchronize()
+        launches = (fs.LAUNCHES.forward, fs.LAUNCHES.backward)
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.asarray(fit.loss_history)
+        n_steps = MIXED_FRAMES // B
+        say(f'  (d) Trainer(max_epochs=1, shuffle_seed=0, prefetch=True, a '
+            f'checkpoint at the epoch\'s end): {fit.global_step} steps, '
+            f'K1/K2 launches {launches} ({launches[0] / fit.global_step:g}/'
+            f'{launches[1] / fit.global_step:g} per step); losses '
+            f'{losses[0]:.6g} -> {losses[-1]:.6g}')
+        if fit.global_step != n_steps or len(losses) != n_steps:
+            raise AssertionError(f'(d) the trainer did not take {n_steps} '
+                                 'steps')
+        if launches != (N_LAYERS * n_steps, N_LAYERS * n_steps):
+            raise AssertionError(f'(d) K1/K2 launched {launches}')
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError('(e) a loss is not finite')
+        logger = tfep_map.tfep_logger
+        for step, indices in enumerate(app_orders(0, 1)):
+            rows = logger.read_train_tensors(step_idx=step)
+            if not (np.array_equal(rows['dataset_sample_index'], indices)
+                    and np.all(np.isfinite(rows['potential']))
+                    and np.all(np.isfinite(rows['log_det_J']))):
+                raise AssertionError(f'(e) step {step} lacks its log rows')
+        ckpt_bytes = os.path.getsize(fit.checkpoint_path)
+        say(f'  (e) every step\'s {B} rows in tfep_logger.read_train_tensors, '
+            f'in the sampler\'s order for shuffle_seed=0, finite; checkpoint '
+            f'{ckpt_bytes / 1e6:.1f} MB in '
+            f'{1e3 * fit.host_seconds["checkpoint"][0]:.1f} ms')
+        window = fit.profiled_step_times
+        window_ms = 1e3 * sum(window) / len(window)
+        kinds = kernel_kinds(fit.profile)
+        busy_ms = sum(us for _, us in kinds.values()) / len(window) / 1e3
+        conversion = conversion_profile(tfep_map.flow, frames, smi)
+        del tfep_map, fit
+
+        # The step unprofiled, with the logger and without: the difference
+        # of two fits of different length.
+        walls, host = {}, {}
+        for logger in (True, False):
+            for steps in (MIXED_TIMED_STEPS, 2 * MIXED_TIMED_STEPS):
+                tfep_map = new_map(f'timed{steps}', state, logger)
+                timed = Trainer(save_dir=None, max_steps=steps, shuffle=True,
+                                shuffle_seed=0, prefetch=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timed.fit(tfep_map)
+                torch.cuda.synchronize()
+                walls[logger, steps] = time.perf_counter() - t0
+                if logger:
+                    host = {name: 1e3 * total / calls for name, (total, calls)
+                            in timed.host_seconds.items()}
+                del tfep_map, timed
+        step_ms, nolog_ms = (
+            1e3 * (walls[logger, 2 * MIXED_TIMED_STEPS]
+                   - walls[logger, MIXED_TIMED_STEPS]) / MIXED_TIMED_STEPS
+            for logger in (True, False))
+        say(f'  Trainer.fit step: {step_ms:.3f} ms unprofiled, '
+            f'{B / step_ms * 1e3:.0f} frames/s; without the logger '
+            f'{nolog_ms:.3f} ms, {B / nolog_ms * 1e3:.0f} frames/s; {smi}')
+        say(f'  profiled window (steps 3-7): {window_ms:.3f} ms per step; '
+            f'device busy {busy_ms:.3f} ms per step, idle share '
+            f'{1.0 - busy_ms / step_ms:.3f} of the unprofiled step '
+            f'({1.0 - busy_ms / nolog_ms:.3f} without the logger); peak '
+            f'memory {peak / 2**20:.1f} MiB; {smi}')
+        for kind, (count, us) in sorted(kinds.items(),
+                                        key=lambda kv: -kv[1][1]):
+            say(f'    {kind}: {us / len(window) / 1e3:.3f} ms per step, '
+                f'{count / len(window):.0f} kernels per step')
+        say('  host ms per call, unprofiled run of '
+            f'{2 * MIXED_TIMED_STEPS} steps: '
+            + ', '.join(f'{name} {ms:.3f}' for name, ms in host.items()))
+
+        # K1/K2 at the angle spline's width.
+        sets = spline_sets(device, MIXED_F)
+        consts = (K, 1e-4, 1e-4)
+        kernel_ms = {}
+        for name, launch, nbytes, nops in (
+                ('spline_forward',
+                 lambda x, p, b, gy, gl: fs.launch_forward(x, p, *b, *consts),
+                 fs.forward_bytes(B, MIXED_F, K, 4),
+                 fs.forward_ops(B, MIXED_F, K)),
+                ('spline_backward',
+                 lambda x, p, b, gy, gl: fs.launch_backward(
+                     x, p, *b, gy, gl, *consts),
+                 fs.backward_bytes(B, MIXED_F, K, 4),
+                 fs.backward_ops(B, MIXED_F, K))):
+            runs = [graph_ms(launch, sets, 64, 5) for _ in range(2)]
+            kernel_ms[name] = sum(runs) / 2
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           nops / FP32_OPS_PER_S) * 1e3
+            say(f'  {name} at F={MIXED_F}: {kernel_ms[name]:.5f} ms (CUDA '
+                f'graph, runs {runs[0]:.5f}, {runs[1]:.5f}); bound '
+                f'{bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB), '
+                f'{bound_ms / kernel_ms[name]:.3f} of it; [{smi}]')
+        del sets
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(errors=errors, launches=launches, setup_s=setup_s,
+                step_ms=step_ms, frames_per_s=B / step_ms * 1e3,
+                step_ms_without_logger=nolog_ms, window_ms=window_ms,
+                busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+                conversion=conversion, host_ms=host, kernel_ms=kernel_ms,
+                peak_bytes=peak, checkpoint_bytes=ckpt_bytes,
+                ill_conditioned_frames=int((~conditioned).sum()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the CNF map. The port's ContinuousEGNNMap at
+# benchmarks/cnf_bench.py's configuration, trained through Trainer.fit.
+# ---------------------------------------------------------------------------
+
+CNF_MAP_FRAMES = 4 * CNF_BATCH
+CNF_MAP_STEPS = 4
+CNF_CRASH_STEP = 2
+
+
+def cnf_map_phase(device, smi, handoff):
+    """Phase 11: checks (a)-(d) and times. ``handoff`` holds phase 6's
+    weights and frames, on the host, and phase 7's step and busy time
+    where they were measured."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.app import ContinuousEGNNMap, Trainer
+    from tfep_tpu_torch.io.topology import Topology
+    from tfep_tpu_torch.io.traj import System
+    from tfep_tpu_torch.ops.egnn import LAUNCHES
+    from tfep_tpu_torch.units import ureg
+
+    state, first = handoff['state'], handoff['frames']
+    # Phase 6's frames first, then more of the same 0.5 N(0, 1).
+    rest = 0.5 * torch.randn(CNF_MAP_FRAMES - CNF_BATCH, first.shape[1],
+                             generator=torch.Generator().manual_seed(SEED + 1))
+    system = System(Topology(names=[f'C{i}' for i in range(N_ATOMS)],
+                             elements=['C'] * N_ATOMS),
+                    torch.cat([first, rest]).numpy().reshape(-1, N_ATOMS, 3))
+    work = tempfile.mkdtemp(prefix='tfep_cnfmap_')
+
+    def new_map(name):
+        tfep_map = ContinuousEGNNMap(
+            potential_energy_func=HarmonicPotential(),
+            temperature=300.0 * ureg.kelvin, system=system,
+            batch_size=CNF_BATCH,
+            tfep_logger_dir_path=os.path.join(work, name, 'logs'),
+            node_types=np.arange(N_ATOMS) % 4, r_cutoff=R_CUTOFF,
+            n_egnn_layers=CNF_LAYERS, node_feat_dim=CNF_FEAT,
+            distance_feat_dim=CNF_FEAT, time_feat_dim=16, solver='rk4',
+            n_steps=ODE_STEPS, trace_estimator='hutchinson',
+            n_hutchinson_samples=1, regularization=True,
+            egnn_kwargs={'pairwise': 'pallas', 'initialize_identity': False},
+            device=device, dtype=torch.float32)
+        tfep_map.setup()
+        tfep_map.flow.load_state_dict(state, strict=True)
+        return tfep_map
+
+    def trainer(name, **kwargs):
+        return Trainer(save_dir=os.path.join(work, name, 'ckpt'),
+                       shuffle=True, shuffle_seed=0, prefetch=True, **kwargs)
+
+    try:
+        tfep_map = new_map('a')
+        paths = [layer.pairwise for layer in
+                 tfep_map.flow.dynamics.graph_layers]
+        say(f'  ContinuousEGNNMap on {CNF_MAP_FRAMES} frames of {N_ATOMS} '
+            f'atoms, batch {CNF_BATCH}, egnn_kwargs pairwise=\'pallas\' built '
+            f'pairwise={paths}; phase 6\'s weights with '
+            f'load_state_dict(strict=True); {smi}')
+        if paths != ['fused'] * CNF_LAYERS:
+            raise AssertionError('pairwise=\'pallas\' did not build the '
+                                 'fused path')
+
+        # (a) The map's forward against phase 6's flow, same probe.
+        batch = tfep_map.batch_to_device(tfep_map.host_tensors(
+            tfep_map.dataset.get_batch(np.arange(CNF_BATCH))))
+        eps = tfep_map.flow.probes(batch['positions'],
+                                   tfep_map.probe_generator(batch))
+        reference, _ = build_cnf(device)
+        reference.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            out = tfep_map.forward(batch)
+            ref = reference.integrate(first.to(device), eps)
+        del reference
+        for label, ours, theirs in zip(('y', 'log_det_J', 'reg'),
+                                       (out['positions'], out['log_det_J'],
+                                        out['regularization']), ref):
+            err, rel = rel_err(ours.double(), theirs.double())
+            say(f'  (a) map.forward - phase 6 flow, {label}: max|diff| = '
+                f'{err:.3e}, {rel:.3e} of scale (tolerance {APP_MAP_TOL:g});'
+                f' bit-identical: {bool(torch.equal(ours, theirs))}')
+            if not rel <= APP_MAP_TOL:
+                raise AssertionError(f'(a) the map\'s {label} differs')
+
+        # (c) Two steps on the same batch draw different probes; one step
+        # draws the same twice.
+        probes = [tfep_map.flow.probes(batch['positions'],
+                                       tfep_map.probe_generator(
+                                           {**batch, 'global_step': s}))
+                  for s in (0, 1, 0)]
+        say(f'  (c) probes of steps 0 and 1 on one batch differ: '
+            f'{not torch.equal(probes[0], probes[1])}; step 0 twice equal: '
+            f'{torch.equal(probes[0], probes[2])}')
+        if torch.equal(probes[0], probes[1]) or not torch.equal(probes[0],
+                                                                probes[2]):
+            raise AssertionError('(c) the probes do not refresh per step')
+        del tfep_map, out, ref, probes
+
+        # (b) Trainer.fit, counted and timed (one checkpoint, at its end).
+        def timed_fit(fit, tfep_map, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit.fit(tfep_map, **kwargs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        tfep_map = new_map('b')
+        fit = trainer('b', max_steps=CNF_MAP_STEPS,
+                      checkpoint_every_n_steps=CNF_MAP_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        wall = {CNF_MAP_STEPS: timed_fit(fit, tfep_map)}
+        launches = (LAUNCHES.k3, LAUNCHES.k4, LAUNCHES.k5)
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.asarray(fit.loss_history)
+        expected = (0, 2 * BLOCKS_PER_PASS * CNF_MAP_STEPS,
+                    BLOCKS_PER_PASS * CNF_MAP_STEPS)
+        say(f'  (b) Trainer(max_steps={CNF_MAP_STEPS}, prefetch=True): '
+            f'K3/K4/K5 launches {launches}, per step '
+            f'{launches[1] // CNF_MAP_STEPS}/{launches[2] // CNF_MAP_STEPS} '
+            f'K4/K5 ({BLOCKS_PER_PASS} K4 forward, {BLOCKS_PER_PASS} '
+            f'recomputed under checkpoint); losses {losses.tolist()}')
+        if launches != expected or len(losses) != CNF_MAP_STEPS:
+            raise AssertionError(f'(b) K3/K4/K5 launched {launches}')
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError('(b) a loss is not finite')
+        trained = [p.detach().clone() for p in tfep_map.flow.parameters()]
+        del tfep_map, fit
+
+        # (d) Stopped after step 2 (timed: one checkpoint, at its end),
+        # resumed from last.ckpt with steps 2-3 profiled.
+        crashed = trainer('d', max_steps=CNF_CRASH_STEP,
+                          checkpoint_every_n_steps=CNF_CRASH_STEP)
+        wall[CNF_CRASH_STEP] = timed_fit(crashed, new_map('d'))
+        host = {name: 1e3 * total / calls
+                for name, (total, calls) in crashed.host_seconds.items()}
+        resumed_map = new_map('d')
+        resumed = trainer('d', max_steps=CNF_MAP_STEPS,
+                          checkpoint_every_n_steps=CNF_CRASH_STEP,
+                          profile_dir=os.path.join(work, 'd', 'profile'),
+                          profile_steps=(CNF_CRASH_STEP, CNF_MAP_STEPS))
+        resumed.fit(resumed_map, resume=True)
+        worst, identical = 0.0, True
+        for a, b in zip(resumed_map.flow.parameters(), trained):
+            if a.numel():
+                worst = max(worst, float((a.detach() - b).abs().max()))
+            identical &= bool(torch.equal(a.detach(), b))
+        say(f'  (d) stopped after step {CNF_CRASH_STEP}, resumed from '
+            f'last.ckpt: {len(resumed.loss_history)} more steps; final '
+            f'weights against the uninterrupted run of (b): max|diff| '
+            f'{worst:.3e} (tolerance {APP_RESUME_TOL:g}), bit-identical: '
+            f'{identical}')
+        if not (resumed.global_step == CNF_MAP_STEPS and worst
+                <= APP_RESUME_TOL):
+            raise AssertionError('(d) the resumed weights differ')
+
+        window = resumed.profiled_step_times
+        window_ms = 1e3 * sum(window) / len(window)
+        kinds = kernel_kinds(resumed.profile)
+        busy_ms = sum(us for _, us in kinds.values()) / len(window) / 1e3
+        step_ms = 1e3 * (wall[CNF_MAP_STEPS] - wall[CNF_CRASH_STEP]) / (
+            CNF_MAP_STEPS - CNF_CRASH_STEP)
+        say(f'  Trainer.fit step: {step_ms:.2f} ms unprofiled ((fit of '
+            f'{CNF_MAP_STEPS} steps - fit of {CNF_CRASH_STEP} steps) / '
+            f'{CNF_MAP_STEPS - CNF_CRASH_STEP}; the fits took '
+            f'{wall[CNF_MAP_STEPS]:.2f} and {wall[CNF_CRASH_STEP]:.2f} s), '
+            f'{CNF_BATCH / step_ms * 1e3:.1f} frames/s; profiled window '
+            f'(steps {CNF_CRASH_STEP}-{CNF_MAP_STEPS - 1} of the resumed '
+            f'run) {window_ms:.2f} ms per step; device busy {busy_ms:.2f} '
+            f'ms per step, idle share {1.0 - busy_ms / step_ms:.3f}; peak '
+            f'memory {peak / 2**20:.1f} MiB; host ms per call (the fit of '
+            f'{CNF_CRASH_STEP}): '
+            + ', '.join(f'{name} {ms:.3f}' for name, ms in host.items())
+            + f'; {smi}')
+        if 'step_ms' in handoff:
+            say(f'  phase 7\'s bare step in this run: {handoff["step_ms"]:.2f} '
+                f'ms, device busy {handoff["busy_ms"]:.2f} ms')
+        for kind, (count, us) in sorted(kinds.items(),
+                                        key=lambda kv: -kv[1][1]):
+            say(f'    {kind}: {us / len(window) / 1e3:.3f} ms per step, '
+                f'{count / len(window):.0f} kernels per step')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=dict(zip(('k3', 'k4', 'k5'), launches)),
+                step_ms=step_ms, frames_per_s=CNF_BATCH / step_ms * 1e3,
+                window_ms=window_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / step_ms, host_ms=host,
+                peak_bytes=peak, resume_max_diff=worst)
+
+
 def main():
     import threading
 
@@ -1568,12 +2120,16 @@ def main():
     say('[6] the CNF slice: cnf_bench training step, pairwise=fused')
     cnf, cnf_frames = build_cnf(device)
     cnf_launches, cnf_step = cnf_phase(cnf, cnf_frames)
+    # Phase 11 holds the CNF map against these weights and frames.
+    cnf_handoff = dict(state={k: v.detach().cpu().clone()
+                              for k, v in cnf.state_dict().items()},
+                       frames=cnf_frames.cpu())
 
     say('[7] CNF times')
     egnn_rows = egnn_timing_phase(device, smi)
     cnf_times = cnf_timing_phase(cnf, cnf_frames, cnf_step, smi)
-    profile_phase(cnf_step, cnf_times['step_ms'], smi, n=2,
-                  batch=CNF_BATCH)
+    cnf_handoff.update(step_ms=cnf_times['step_ms'], busy_ms=profile_phase(
+        cnf_step, cnf_times['step_ms'], smi, n=2, batch=CNF_BATCH))
     del cnf, cnf_frames, cnf_step
     torch.cuda.empty_cache()
 
@@ -1588,6 +2144,16 @@ def main():
         'configuration, trained through Trainer.fit')
     app = app_phase(device, smi, handoff)
     del handoff
+    torch.cuda.empty_cache()
+
+    say('[10] the flagship map: the port\'s MixedMAFMap at bench_mixed_jax\'s '
+        'configuration, trained through Trainer.fit; K1/K2 at F=30')
+    mixed = mixed_phase(device, smi)
+    torch.cuda.empty_cache()
+
+    say('[11] the CNF map: the port\'s ContinuousEGNNMap at cnf_bench\'s '
+        'configuration, trained through Trainer.fit')
+    cnf_map = cnf_map_phase(device, smi, cnf_handoff)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -1597,13 +2163,19 @@ def main():
                                    f'at {tpu}:304 from _fused_spline_bwd '
                                    f'{tpu}:407)'}
     kernels = []
-    for row, which in zip(rows, ('forward', 'backward')):
+    for row, which, i in zip(rows, ('forward', 'backward'), (0, 1)):
         kernels.append({
             'name': row['name'], 'route': 'triton',
             'source': 'tfep_tpu_torch/ops/spline.py',
             'replaces': replaces[row['name']],
             'launches': launches[which],
-            'max_abs_err': max(errors[which], cart['errors'][which]),
+            'launches_by_path': {
+                'maf_slice': launches[which],
+                'cartesian_slice': cart['launches'][which],
+                'cartesian_map': app['launches'][i],
+                'mixed_map': mixed['launches'][i]},
+            'max_abs_err': max(errors[which], cart['errors'][which],
+                               mixed['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': None})
@@ -1624,6 +2196,8 @@ def main():
             'name': row['name'], 'route': 'cuda',
             'source': 'tfep_tpu_torch/csrc/egnn.cu',
             'replaces': where, 'launches': cnf_launches[count],
+            'launches_by_path': {'cnf_slice': cnf_launches[count],
+                                 'cnf_map': cnf_map['launches'][count]},
             'max_abs_err': egnn_errors[label],
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
@@ -1638,6 +2212,9 @@ def main():
                     'cartesian': {k: v for k, v in cart.items()
                                   if k != 'errors'},
                     'app': app,
+                    'mixed': {k: v for k, v in mixed.items()
+                              if k != 'errors'},
+                    'cnf_map': cnf_map,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,5 @@
-"""Guards of the port: it imports no JAX and nothing of ``tfep_tpu``, and
-its entry points never quietly fall back to the CPU."""
+"""Guards of the port: it imports no JAX, nothing of ``tfep_tpu`` and no
+``networkx``, and its entry points never quietly fall back to the CPU."""
 
 import ast
 from pathlib import Path
@@ -8,23 +8,29 @@ import numpy as np
 import pytest
 import torch
 
-from tfep_tpu_torch.app import CartesianMAFMap, TFEPMapBase
+from tfep_tpu_torch.app import (
+    CartesianMAFMap, ContinuousEGNNMap, MixedMAFMap, TFEPMapBase,
+)
 from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.io.topology import Topology
 from tfep_tpu_torch.io.traj import System
 from tfep_tpu_torch.nn.conditioners.made import MADE
 from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics
 from tfep_tpu_torch.nn.embeddings import (
-    BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
+    BehlerParrinelloRadialExpansion, FlipInvariantEmbedding,
+    GaussianBasisExpansion, MixedEmbedding, PeriodicEmbedding,
 )
+from tfep_tpu_torch.nn.graph import FixedGraph
 from tfep_tpu_torch.nn.flows import (
-    CenteredCentroidFlow, ContinuousFlow, MAF, OrientedFlow, PartialFlow,
-    PCAWhitenedFlow, SequentialFlow,
+    CartesianToMixedFlow, CenteredCentroidFlow, ContinuousFlow, MAF,
+    OrientedFlow, PartialFlow, PCAWhitenedFlow, SequentialFlow,
 )
 from tfep_tpu_torch.nn.masked import MaskedLinear
 from tfep_tpu_torch.nn.transformers import (
-    NeuralSplineTransformer, VolumePreservingShiftTransformer,
+    MixedTransformer, NeuralSplineTransformer,
+    VolumePreservingShiftTransformer,
 )
+from tfep_tpu_torch.ops.zmatrix import PlacementSchedule
 from tfep_tpu_torch.units import ureg
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,6 +58,14 @@ def _imported_roots(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & {'jax', 'jaxlib', 'tfep_tpu'}
+
+
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_networkx(path):
+    """The machine with the card has no networkx: the Z-matrix builder
+    walks the bond graph with the port's own helpers."""
+    assert 'networkx' not in _imported_roots(path)
 
 
 @pytest.fixture
@@ -82,6 +96,16 @@ def no_card(monkeypatch):
         torch.nn.Identity(), np.random.default_rng(0).normal(size=(8, 3))),
     lambda: TFEPMapBase(**_map_args()),
     lambda: CartesianMAFMap(**_map_args(), n_maf_layers=2),
+    lambda: ContinuousEGNNMap(**_map_args()),
+    lambda: MixedMAFMap(**_map_args()),
+    lambda: FixedGraph(),
+    lambda: PeriodicEmbedding(3, [0.0, 1.0]),
+    lambda: FlipInvariantEmbedding(torch.Generator(), 4, 2),
+    lambda: MixedEmbedding(3, [torch.nn.Identity()], [[0]]),
+    lambda: MixedTransformer([torch.nn.Identity()] * 2, [[0], [1]]),
+    lambda: PlacementSchedule([[3, 0, 1, 2]], 4),
+    lambda: CartesianToMixedFlow.create(None, [0, 1, 2], [[3, 0, 1, 2]],
+                                        [0, 1, 2], [True] * 3),
 ])
 def test_entry_points_without_device_raise(no_card, entry_point):
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -1,17 +1,20 @@
 """Neural-network layer of the port: flows, transformers, conditioners,
-the CNF's dynamics, embeddings and ODE solvers."""
+the CNF's dynamics, embeddings, graph primitives and ODE solvers."""
 
 from tfep_tpu_torch.nn.masked import MaskedLinear, create_autoregressive_mask  # noqa: F401
 from tfep_tpu_torch.nn.flows import (  # noqa: F401
-    AutoregressiveFlow, CenteredCentroidFlow, ContinuousFlow, Flow, MAF,
-    OrientedFlow, PartialFlow, PCAWhitenedFlow, SequentialFlow,
+    AutoregressiveFlow, CartesianToMixedFlow, CenteredCentroidFlow,
+    ContinuousFlow, Flow, MAF, OrientedFlow, PartialFlow, PCAWhitenedFlow,
+    SequentialFlow,
 )
 from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics  # noqa: F401
 from tfep_tpu_torch.nn.embeddings import (  # noqa: F401
-    BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
+    BehlerParrinelloRadialExpansion, FlipInvariantEmbedding,
+    GaussianBasisExpansion, MAFEmbedding, MixedEmbedding, PeriodicEmbedding,
 )
 from tfep_tpu_torch.nn.transformers import (  # noqa: F401
-    AffineTransformer, MAFTransformer, NeuralSplineTransformer, Transformer,
+    AffineTransformer, MAFTransformer, MixedTransformer,
+    NeuralSplineTransformer, Transformer,
     VolumePreservingShiftTransformer, affine_transformer,
     affine_transformer_inverse, neural_spline_transformer,
     neural_spline_transformer_inverse, volume_preserving_shift_transformer,

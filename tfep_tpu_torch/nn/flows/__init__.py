@@ -9,3 +9,4 @@ from tfep_tpu_torch.nn.flows.partial import PartialFlow  # noqa: F401
 from tfep_tpu_torch.nn.flows.centroid import CenteredCentroidFlow  # noqa: F401
 from tfep_tpu_torch.nn.flows.oriented import OrientedFlow  # noqa: F401
 from tfep_tpu_torch.nn.flows.pca import PCAWhitenedFlow  # noqa: F401
+from tfep_tpu_torch.nn.flows.cartmixed import CartesianToMixedFlow  # noqa: F401

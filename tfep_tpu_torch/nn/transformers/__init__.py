@@ -11,3 +11,4 @@ from tfep_tpu_torch.nn.transformers.spline import (  # noqa: F401
     NeuralSplineTransformer, neural_spline_transformer,
     neural_spline_transformer_inverse,
 )
+from tfep_tpu_torch.nn.transformers.mixed import MixedTransformer  # noqa: F401

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Compute ops of the port: the hand-written Hopper kernels, each beside its
+plain version, and the Z-matrix conversion (``zmatrix``)."""
 
 
 class LaunchCounter:
