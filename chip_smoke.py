@@ -92,6 +92,23 @@ Phases, each of which passes or exits non-zero:
    on one batch draw different probes; (d) a run stopped after step 2 and
    resumed ends on the uninterrupted run's weights. Then the step time and
    its device busy time.
+12. From a trajectory file to Δf, at phase 10's configuration: (a) the
+   port's writers write the helix as a PDB with CONECT bonds and its
+   40,960 frames as an XTC; (b) the native decoder is built by g++ (the
+   phase fails without it) and recovers the same stored integers as the
+   pure-Python one on 256 frames, and a DCD of those frames decodes to the
+   same bits both ways; (c) ``MixedMAFMap(coordinates_file_path=...,
+   topology_file_path=..., lazy_trajectory=True)`` trains one epoch through
+   ``Trainer.fit`` (prefetch, checkpoints), K1/K2 at 6/6 per step, its
+   first batch, loss and log rows bit-identical to a map on the decoded
+   frames in memory; a map rebuilt from the checkpoint rereads the file
+   and resumes to the uninterrupted run's weights bit for bit; the step
+   with and without the logger, the lazy read per step and the idle share;
+   (d) ``estimate_from_logger`` on the card against numpy float64 on the
+   same work and resample indices, timed; (e) the identity-map toy of
+   ``tests/app/test_biased.py`` drawn on the card: the unbiased and the
+   biased intervals bracket the analytic Δf, the unweighted estimate on
+   biased frames misses it.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -2073,6 +2090,432 @@ def cnf_map_phase(device, smi, handoff):
                 peak_bytes=peak, resume_max_diff=worst)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: from a trajectory file to Δf. Phase 10's flagship configuration
+# written to an XTC and a PDB with the port's writers, trained lazily from
+# the file through Trainer.fit, and the logged work turned into a Δf with a
+# bootstrap interval on the card.
+# ---------------------------------------------------------------------------
+
+# Frames decoded by both the native and the pure-Python reader.
+NATIVE_CHECK_FRAMES = 256
+# The file map's run is stopped after this step and resumed from its
+# checkpoint by a map rebuilt from the checkpoint (the paths only).
+FILE_CRASH_STEP = 5
+FILE_TIMED_STEPS = MIXED_TIMED_STEPS
+ANALYSIS_RESAMPLES = 2000
+# The card's estimate and bootstrap against numpy's float64 on the same
+# work and the same resample indices, held at this fraction of
+# max(1, |df|). The logged columns keep the map's float32, and so does the
+# estimate on the card: a log-sum-exp of 40,960 float32 terms is a few
+# 1e-7 relative off float64's, and its value (about 100 kT here) rounds to
+# float32's 8e-6.
+ANALYSIS_TOL = 1e-6
+# The identity-map toy of tests/app/test_biased.py:40-48 (kT = 1, two
+# atoms): A = N(0, 1) per DOF, B = N(0, sigma_B^2), biased frames drawn
+# from N(0, sigma_S^2) under V(x) = -|x|^2 / 4.
+TOY_FRAMES = MIXED_FRAMES
+TOY_D = 6
+TOY_SIGMA_B2 = 0.5
+TOY_SIGMA_S = np.sqrt(2.0)
+TOY_DF = -0.5 * TOY_D * np.log(TOY_SIGMA_B2)
+TOY_WRONG_DF = 0.5 * TOY_D * np.log(1.0 + (1.0 / TOY_SIGMA_B2 - 1.0)
+                                    * TOY_SIGMA_S ** 2)
+# tests/app/test_biased.py's allowances: an interval may miss the analytic
+# Δf by 0.1 kT; the unweighted estimate lands within 0.25 kT of its wrong
+# limit and more than 0.8 kT from the analytic value.
+TOY_SLACK = 0.1
+TOY_WRONG_TOL = 0.25
+TOY_MISS = 0.8
+
+
+def write_dcd(path, positions):
+    """A CHARMM-layout DCD of float32 angstrom frames, without a cell (the
+    port reads DCD and writes none; this is the layout of
+    tests/io/test_dcd.py's writer)."""
+    import struct
+    n_frames, n_atoms, _ = positions.shape
+    with open(path, 'wb') as f:
+        icntrl = [0] * 20
+        icntrl[0] = n_frames
+        f.write(struct.pack('<i4s20ii', 84, b'CORD', *icntrl, 84))
+        f.write(struct.pack('<ii80si', 84, 1, b'tfep_tpu_torch'.ljust(80),
+                            84))
+        f.write(struct.pack('<iii', 4, n_atoms, 4))
+        for frame in positions:
+            for dim in range(3):
+                f.write(struct.pack('<i', 4 * n_atoms))
+                f.write(frame[:, dim].astype('<f4').tobytes())
+                f.write(struct.pack('<i', 4 * n_atoms))
+
+
+def lse64(x):
+    """log-sum-exp over the last axis, numpy float64."""
+    m = np.max(x, axis=-1, keepdims=True)
+    return (m + np.log(np.sum(np.exp(x - m), axis=-1, keepdims=True)))[..., 0]
+
+
+def file_phase(device, smi, mixed):
+    """Phase 12: checks (a)-(e) and times. ``mixed`` is phase 10's result
+    (its read time per step)."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.analysis import (
+        bootstrap, estimate_from_logger, fep_estimator,
+    )
+    from tfep_tpu_torch.app import MixedMAFMap, Trainer
+    from tfep_tpu_torch.io import dcd, frames as frame_stores
+    from tfep_tpu_torch.io.native import (
+        native_available, native_build_error, library_path,
+    )
+    from tfep_tpu_torch.io.topology import Topology
+    from tfep_tpu_torch.io.traj import System, load_topology
+    from tfep_tpu_torch.ops import spline as fs
+    from tfep_tpu_torch.units import ureg
+
+    work = tempfile.mkdtemp(prefix='tfep_files_')
+    try:
+        # (a) The files, written by the port's writers.
+        topology = Topology(
+            names=[f'C{i}' for i in range(HELIX_ATOMS)],
+            elements=['C'] * HELIX_ATOMS,
+            bonds=[(i, i + 1) for i in range(HELIX_ATOMS - 1)])
+        positions = helix_frames(MIXED_FRAMES, np.random.default_rng(
+            SEED)).astype(np.float32)
+        pdb = os.path.join(work, 'helix.pdb')
+        xtc = os.path.join(work, 'helix.xtc')
+        t0 = time.perf_counter()
+        System(topology, positions[:1]).save(pdb)
+        pdb_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        System(topology, positions).save(xtc)
+        xtc_s = time.perf_counter() - t0
+        sizes = {'pdb': os.path.getsize(pdb), 'xtc': os.path.getsize(xtc)}
+        with open(pdb) as f:
+            conect = sum(line.startswith('CONECT') for line in f)
+        say(f'  (a) helix.pdb (topology, {conect} CONECT records) '
+            f'{sizes["pdb"]} bytes in {1e3 * pdb_s:.1f} ms; helix.xtc '
+            f'({MIXED_FRAMES} frames, precision 1000) {sizes["xtc"]} bytes '
+            f'({sizes["xtc"] / positions.nbytes:.3f} of float32) in '
+            f'{xtc_s:.2f} s (the pure-Python XTC encoder)')
+        if conect != HELIX_ATOMS:
+            raise AssertionError('(a) the PDB lacks its CONECT bonds')
+
+        # (b) The native library, built from this checkout by g++.
+        t0 = time.perf_counter()
+        available = native_available()
+        build_s = time.perf_counter() - t0
+        if not available:
+            raise AssertionError('(b) the native trajectory library did not '
+                                 f'build:\n{native_build_error()}')
+        store = frame_stores.open_frame_store(xtc)
+        idx = np.sort(np.random.default_rng(SEED).choice(
+            MIXED_FRAMES, NATIVE_CHECK_FRAMES, replace=False))
+        t0 = time.perf_counter()
+        native = store[idx]
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        python = store._py_load(store._offsets[idx])
+        python_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        decoded = np.asarray(store)
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        # Both decoders recover the stored integers (precision 1000, nm);
+        # the native one multiplies them by a float32 1/precision, the
+        # Python one divides in float64, so their floats may differ in the
+        # last place (as in the JAX package).
+        ints_native = np.rint(native.astype(np.float64) * 100.0)
+        ints_python = np.rint(python.astype(np.float64) * 100.0)
+        same_ints = np.array_equal(ints_native, ints_python)
+        ulp = np.abs(native - python) / np.spacing(np.abs(python))
+        quantized = np.abs(decoded - positions).max()
+        say(f'  (b) {library_path().name} built by g++ in {build_s:.2f} s; '
+            f'{NATIVE_CHECK_FRAMES} frames decoded natively in '
+            f'{native_ms:.2f} ms and in Python in {python_ms:.1f} ms: the '
+            f'stored integers bit-identical: {same_ints}; floats identical '
+            f'on {float(np.mean(native == python)):.4f} of the coordinates, '
+            f'at most {float(ulp.max()):.0f} ulp apart; the whole file '
+            f'natively in {full_ms:.1f} ms, at most {quantized:.2e} A from '
+            'the written frames')
+        if not same_ints or quantized > 0.0051:
+            raise AssertionError('(b) the XTC decoders disagree')
+        dcd_path = os.path.join(work, 'helix.dcd')
+        write_dcd(dcd_path, positions[idx])
+        t0 = time.perf_counter()
+        dcd_native, _ = dcd.read_dcd(dcd_path)
+        dcd_native_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dcd_python, _ = dcd._py_read_frames(dcd_path,
+                                            np.arange(NATIVE_CHECK_FRAMES))
+        dcd_python_ms = 1e3 * (time.perf_counter() - t0)
+        dcd_same = (np.array_equal(dcd_native, dcd_python)
+                    and np.array_equal(dcd_native, positions[idx]))
+        say(f'  (b) the same {NATIVE_CHECK_FRAMES} frames as DCD '
+            f'({os.path.getsize(dcd_path)} bytes): native '
+            f'{dcd_native_ms:.2f} ms, Python {dcd_python_ms:.2f} ms, '
+            f'bit-identical to each other and to the frames: {dcd_same}')
+        if not dcd_same:
+            raise AssertionError('(b) the DCD decoders disagree')
+        files = dict(sizes=dict(sizes, dcd=os.path.getsize(dcd_path)),
+                     xtc_write_s=xtc_s, native_build_s=build_s,
+                     native_256_ms=native_ms, python_256_ms=python_ms,
+                     native_full_ms=full_ms, dcd_native_256_ms=dcd_native_ms,
+                     dcd_python_256_ms=dcd_python_ms,
+                     max_ulp=float(ulp.max()))
+
+        # (c) Training from the file, against the decoded frames in memory.
+        def new_map(name, state=None, logger=True, from_file=True):
+            source = (dict(coordinates_file_path=xtc, topology_file_path=pdb,
+                           lazy_trajectory=True) if from_file else
+                      dict(system=System(load_topology(pdb), decoded,
+                                         dimensions=store.dimensions,
+                                         times=store.times)))
+            tfep_map = MixedMAFMap(
+                potential_energy_func=HarmonicPotential(),
+                temperature=300.0 * ureg.kelvin, batch_size=B,
+                tfep_logger_dir_path=(os.path.join(work, name, 'logs')
+                                      if logger else None),
+                n_maf_layers=N_LAYERS, n_bins=MIXED_BINS, device=device,
+                dtype=torch.float32, **source)
+            t0 = time.perf_counter()
+            tfep_map.setup()
+            tfep_map.setup_s = time.perf_counter() - t0
+            if state is not None:
+                tfep_map.flow.load_state_dict(state, strict=True)
+            return tfep_map
+
+        def trainer(name, **kwargs):
+            kwargs.setdefault('max_epochs', 1)
+            return Trainer(save_dir=os.path.join(work, name, 'ckpt'),
+                           shuffle=True, shuffle_seed=0, prefetch=True,
+                           **kwargs)
+
+        file_map = new_map('file')
+        lazy = type(file_map._system.positions).__name__
+        if lazy != 'XtcFrameStore' or file_map.hparams['system'] is not None:
+            raise AssertionError('(c) the file map is not lazy')
+        generator = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for p in file_map.flow.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=generator).to(p))
+        state = {k: v.detach().clone()
+                 for k, v in file_map.flow.state_dict().items()}
+        memory_map = new_map('memory', state, from_file=False)
+        say(f'  (c) MixedMAFMap(coordinates_file_path=helix.xtc, '
+            f'topology_file_path=helix.pdb, lazy_trajectory=True): setup() '
+            f'{file_map.setup_s:.2f} s, the in-memory map of the decoded '
+            f'frames {memory_map.setup_s:.2f} s; Z-matrix equal to phase '
+            f'[10]\'s literal: '
+            f'{np.array_equal(file_map.flow.z_matrix.cpu().numpy(), HELIX_Z_MATRIX)}')
+        if not np.array_equal(file_map.flow.z_matrix.cpu().numpy(),
+                              HELIX_Z_MATRIX):
+            raise AssertionError('(c) the file map\'s Z-matrix differs')
+        first = app_orders(0, 1)[0]
+        batches = [m.dataset.get_batch(first) for m in (file_map, memory_map)]
+        if not (sorted(batches[0]) == sorted(batches[1]) and all(
+                np.array_equal(batches[0][k], batches[1][k])
+                for k in batches[0])):
+            raise AssertionError('(c) the first batches differ')
+        fits = {}
+        for name, tfep_map in (('file', file_map), ('memory', memory_map)):
+            fit = trainer(name, checkpoint_every_n_steps=FILE_CRASH_STEP,
+                          **({'profile_dir': os.path.join(work, 'profile'),
+                              'profile_steps': (3, 8)}
+                             if name == 'file' else {}))
+            torch.cuda.synchronize()
+            fs.LAUNCHES.reset()
+            fit.fit(tfep_map)
+            torch.cuda.synchronize()
+            fits[name] = (fit, (fs.LAUNCHES.forward, fs.LAUNCHES.backward))
+        (fit, launches), (mem_fit, _) = fits['file'], fits['memory']
+        n_steps = MIXED_FRAMES // B
+        rows = [m.tfep_logger.read_train_tensors(step_idx=0)
+                for m in (file_map, memory_map)]
+        first_same = (fit.loss_history[0] == mem_fit.loss_history[0]
+                      and sorted(rows[0]) == sorted(rows[1])
+                      and all(np.array_equal(rows[0][k], rows[1][k])
+                              for k in rows[0]))
+        all_losses_same = fit.loss_history == mem_fit.loss_history
+        weights_same = all(torch.equal(a, b) for a, b in zip(
+            file_map.flow.parameters(), memory_map.flow.parameters()))
+        say(f'  (c) Trainer(max_epochs=1, shuffle_seed=0, prefetch=True, '
+            f'checkpoints every {FILE_CRASH_STEP} steps) from the file: '
+            f'{fit.global_step} steps, K1/K2 launches {launches} '
+            f'({launches[0] / fit.global_step:g}/'
+            f'{launches[1] / fit.global_step:g} per step); the first step\'s '
+            f'batch, loss ({fit.loss_history[0]:.9g}) and {B} log rows '
+            f'bit-identical to the in-memory map\'s: {first_same}; every '
+            f'loss: {all_losses_same}; final weights: {weights_same}')
+        if launches != (N_LAYERS * n_steps, N_LAYERS * n_steps):
+            raise AssertionError(f'(c) K1/K2 launched {launches}')
+        if not (first_same and np.all(np.isfinite(fit.loss_history))):
+            raise AssertionError('(c) the file map\'s first step differs')
+        window = fit.profiled_step_times
+        window_ms = 1e3 * sum(window) / len(window)
+        busy_ms = sum(us for _, us in kernel_kinds(
+            fit.profile).values()) / len(window) / 1e3
+        trained = [p.detach().clone() for p in file_map.flow.parameters()]
+        logger = file_map.tfep_logger
+        del memory_map, mem_fit, fits
+
+        # The resume: a map rebuilt from the file map's checkpoint at step
+        # FILE_CRASH_STEP rereads the file.
+        crashed = trainer('crash', max_steps=FILE_CRASH_STEP,
+                          checkpoint_every_n_steps=FILE_CRASH_STEP)
+        crashed.fit(new_map('crash', state))
+        resumed_map = MixedMAFMap.load_from_checkpoint(
+            crashed.checkpoint_path,
+            potential_energy_func=HarmonicPotential())
+        reread = (type(resumed_map._system.positions).__name__ ==
+                  'XtcFrameStore' and resumed_map.hparams['system'] is None)
+        resumed = trainer('crash', checkpoint_every_n_steps=FILE_CRASH_STEP)
+        resumed.fit(resumed_map, resume=True)
+        resume_same = all(torch.equal(a.detach(), b) for a, b in zip(
+            resumed_map.flow.parameters(), trained))
+        say(f'  (c) stopped after step {FILE_CRASH_STEP}; '
+            'MixedMAFMap.load_from_checkpoint rebuilt the map from the '
+            f'paths and reread the file lazily: {reread}; resumed to step '
+            f'{resumed.global_step}: final weights bit-identical to the '
+            f'uninterrupted run\'s: {resume_same}')
+        if not (reread and resume_same and resumed.global_step == n_steps):
+            raise AssertionError('(c) the resume from the file differs')
+        del resumed_map, resumed, crashed
+
+        # The step from the file, with the logger and without.
+        walls, host = {}, {}
+        for with_logger in (True, False):
+            for steps in (FILE_TIMED_STEPS, 2 * FILE_TIMED_STEPS):
+                tfep_map = new_map(f'timed{steps}', state, with_logger)
+                timed = Trainer(save_dir=None, max_steps=steps, shuffle=True,
+                                shuffle_seed=0, prefetch=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timed.fit(tfep_map)
+                torch.cuda.synchronize()
+                walls[with_logger, steps] = time.perf_counter() - t0
+                if with_logger:
+                    host = {name: 1e3 * total / calls for name, (total, calls)
+                            in timed.host_seconds.items()}
+                del tfep_map, timed
+        step_ms, nolog_ms = (
+            1e3 * (walls[lg, 2 * FILE_TIMED_STEPS]
+                   - walls[lg, FILE_TIMED_STEPS]) / FILE_TIMED_STEPS
+            for lg in (True, False))
+        mixed_read = mixed['host_ms'].get('read', float('nan'))
+        say(f'  Trainer.fit step from the file: {step_ms:.3f} ms unprofiled, '
+            f'{B / step_ms * 1e3:.0f} frames/s; without the logger '
+            f'{nolog_ms:.3f} ms; profiled window (steps 3-7) '
+            f'{window_ms:.3f} ms, device busy {busy_ms:.3f} ms per step, idle '
+            f'share {1.0 - busy_ms / step_ms:.3f} ({1.0 - busy_ms / nolog_ms:.3f} '
+            f'without the logger); read (lazy XTC decode of {B} frames + '
+            f'pinned copy, prefetch thread) {host["read"]:.3f} ms per step '
+            f'against phase [10]\'s in-memory gather {mixed_read:.3f} ms; '
+            f'{smi}')
+        say('  host ms per call, unprofiled run of '
+            f'{2 * FILE_TIMED_STEPS} steps: '
+            + ', '.join(f'{name} {ms:.3f}' for name, ms in host.items()))
+
+        # (d) Δf from the file map's logger, on the card.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        estimate = estimate_from_logger(logger, epoch_idx=0,
+                                        n_resamples=ANALYSIS_RESAMPLES,
+                                        device=device)
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        w = estimate['work']
+        n = len(w)
+        if n != MIXED_FRAMES or estimate['n_samples'] != MIXED_FRAMES:
+            raise AssertionError('(d) the estimate lacks work values')
+        # The same bootstrap alone, between CUDA events.
+        work_t = torch.as_tensor(w, device=device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        boot = bootstrap(work_t, fep_estimator,
+                         n_resamples=ANALYSIS_RESAMPLES, seed=0)
+        end.record()
+        torch.cuda.synchronize()
+        boot_ms = start.elapsed_time(end)
+        # numpy float64 on the same work and the indices a generator on the
+        # card seeded alike draws again.
+        g = torch.Generator(device=device).manual_seed(0)
+        idx = torch.randint(0, n, (ANALYSIS_RESAMPLES, n), generator=g,
+                            device=device).cpu().numpy()
+        stats = -lse64(-w[idx] - np.log(n))
+        del idx
+        low, high = np.quantile(stats, [0.025, 0.975])
+        df64 = float(-lse64(-w - np.log(n)))
+        diffs = [abs(estimate['df'] - df64),
+                 abs(estimate['confidence_interval']['low'] - low),
+                 abs(estimate['confidence_interval']['high'] - high),
+                 abs(float(boot['confidence_interval']['low']) - low)]
+        say(f'  (d) estimate_from_logger(epoch_idx=0, n_resamples='
+            f'{ANALYSIS_RESAMPLES}) on the card: df {estimate["df"]:.9f} kT, '
+            f'95% interval [{estimate["confidence_interval"]["low"]:.9f}, '
+            f'{estimate["confidence_interval"]["high"]:.9f}]; numpy float64 '
+            f'on the same work and indices: df {df64:.9f}, [{low:.9f}, '
+            f'{high:.9f}]; largest difference {max(diffs):.3e} (tolerance '
+            f'{ANALYSIS_TOL:g} of max(1, |df|); work in {w.dtype}); the call {call_ms:.1f} ms, the bootstrap '
+            f'alone {boot_ms:.2f} ms (CUDA events, {ANALYSIS_RESAMPLES} x '
+            f'{n}); {smi}')
+        if not max(diffs) <= ANALYSIS_TOL * max(1.0, abs(df64)):
+            raise AssertionError('(d) the card\'s Δf differs from float64')
+
+        # (e) The analytic toy, drawn on the card.
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x_a = torch.randn((TOY_FRAMES, TOY_D), generator=g, device=device,
+                          dtype=torch.float64)
+        x_s = TOY_SIGMA_S * torch.randn((TOY_FRAMES, TOY_D), generator=g,
+                                        device=device, dtype=torch.float64)
+
+        def toy_work(x):   # u_B(x) - u_A(x), the identity map's work
+            return (x * x).sum(-1) * (0.5 / TOY_SIGMA_B2 - 0.5)
+
+        def stat(d, vectorized=False, weights=None):
+            return fep_estimator(d, vectorized=vectorized, weights=weights)
+
+        toy = {}
+        for label, data in (
+                ('unbiased', toy_work(x_a)),
+                ('biased', torch.stack([toy_work(x_s),
+                                        -0.25 * (x_s * x_s).sum(-1)], -1)),
+                ('unweighted', toy_work(x_s))):
+            result = bootstrap(data, stat, n_resamples=ANALYSIS_RESAMPLES,
+                               seed=1)
+            toy[label] = dict(df=float(stat(data)), low=float(
+                result['confidence_interval']['low']), high=float(
+                result['confidence_interval']['high']))
+        say(f'  (e) the identity-map toy, {TOY_FRAMES} frames per set drawn '
+            f'on the card: analytic df -D ln(sigma_B) = {TOY_DF:.6f} kT; '
+            + '; '.join(f'{k} {v["df"]:.6f} [{v["low"]:.6f}, {v["high"]:.6f}]'
+                        for k, v in toy.items())
+            + f'; the unweighted estimate\'s limit {TOY_WRONG_DF:.6f}')
+        for label in ('unbiased', 'biased'):
+            if not (toy[label]['low'] - TOY_SLACK <= TOY_DF
+                    <= toy[label]['high'] + TOY_SLACK):
+                raise AssertionError(f'(e) the {label} interval misses Δf')
+        if not (abs(toy['unweighted']['df'] - TOY_WRONG_DF) < TOY_WRONG_TOL
+                and abs(toy['unweighted']['df'] - TOY_DF) > TOY_MISS):
+            raise AssertionError('(e) the unweighted estimate does not miss')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    analysis = dict(df=estimate['df'],
+                    confidence_interval=estimate['confidence_interval'],
+                    df_float64=df64, max_diff=max(diffs), call_ms=call_ms,
+                    bootstrap_ms=boot_ms, toy=toy, toy_df=TOY_DF)
+    return dict(files=files, analysis=analysis, launches=launches,
+                setup_s=file_map.setup_s, step_ms=step_ms,
+                step_ms_without_logger=nolog_ms, window_ms=window_ms,
+                busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+                host_ms=host, read_ms=host['read'],
+                mixed_read_ms=mixed_read, first_step_identical=first_same,
+                all_losses_identical=all_losses_same,
+                weights_identical=weights_same)
+
+
 def main():
     import threading
 
@@ -2154,6 +2597,12 @@ def main():
     say('[11] the CNF map: the port\'s ContinuousEGNNMap at cnf_bench\'s '
         'configuration, trained through Trainer.fit')
     cnf_map = cnf_map_phase(device, smi, cnf_handoff)
+    torch.cuda.empty_cache()
+
+    say('[12] from a trajectory file to Δf: phase [10]\'s configuration '
+        'written as XTC + PDB, trained lazily from the file, estimated on '
+        'the card')
+    file_map = file_phase(device, smi, mixed)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -2173,7 +2622,8 @@ def main():
                 'maf_slice': launches[which],
                 'cartesian_slice': cart['launches'][which],
                 'cartesian_map': app['launches'][i],
-                'mixed_map': mixed['launches'][i]},
+                'mixed_map': mixed['launches'][i],
+                'file_map': file_map['launches'][i]},
             'max_abs_err': max(errors[which], cart['errors'][which],
                                mixed['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
@@ -2215,6 +2665,10 @@ def main():
                     'mixed': {k: v for k, v in mixed.items()
                               if k != 'errors'},
                     'cnf_map': cnf_map,
+                    'file_map': {k: v for k, v in file_map.items()
+                                 if k not in ('files', 'analysis')},
+                    'files': file_map['files'],
+                    'analysis': file_map['analysis'],
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

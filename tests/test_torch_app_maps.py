@@ -105,8 +105,18 @@ def test_no_mapped_atoms_raise(tmp_path):
 
 
 def test_file_paths_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        make_map(tmp_path, system=None, coordinates_file_path='traj.pdb')
+    """The file branch: a map built from a coordinates file reads it and
+    records only the path; a missing file or no system at all raises."""
+    path = str(tmp_path / 'traj.pdb')
+    make_system().save(path)
+    tfep_map = make_map(tmp_path, system=None, coordinates_file_path=path)
+    np.testing.assert_array_equal(tfep_map._system.positions,
+                                  System.from_file(path).positions)
+    assert tfep_map.hparams['system'] is None
+    assert tfep_map.hparams['coordinates_file_path'] == path
+    with pytest.raises(FileNotFoundError):
+        make_map(tmp_path, system=None,
+                 coordinates_file_path=str(tmp_path / 'missing.pdb'))
     with pytest.raises(ValueError, match='Pass either'):
         make_map(tmp_path, system=None)
 

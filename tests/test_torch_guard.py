@@ -1,5 +1,7 @@
-"""Guards of the port: it imports no JAX, nothing of ``tfep_tpu`` and no
-``networkx``, and its entry points never quietly fall back to the CPU."""
+"""Guards of the port: it imports no JAX, nothing of ``tfep_tpu``, no
+``networkx`` and no ``MDAnalysis``, its native trajectory decoder is
+built from its own copy of the C++ source, and its entry points never
+quietly fall back to the CPU."""
 
 import ast
 from pathlib import Path
@@ -8,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from tfep_tpu_torch.analysis import bootstrap, fep_estimator
 from tfep_tpu_torch.app import (
     CartesianMAFMap, ContinuousEGNNMap, MixedMAFMap, TFEPMapBase,
 )
 from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.io.topology import Topology
+from tfep_tpu_torch.io import native
 from tfep_tpu_torch.io.traj import System
 from tfep_tpu_torch.nn.conditioners.made import MADE
 from tfep_tpu_torch.nn.dynamics import EGNNDynamics, MaskedVelocityDynamics
@@ -68,6 +72,26 @@ def test_port_imports_no_networkx(path):
     assert 'networkx' not in _imported_roots(path)
 
 
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_mdanalysis(path):
+    """``System.from_universe`` is duck-typed: MDAnalysis is never
+    imported."""
+    assert 'MDAnalysis' not in _imported_roots(path)
+
+
+def test_native_source_is_the_ports_own():
+    """The loader compiles ``tfep_tpu_torch/native/trajio.cpp`` into
+    ``build/native/``, never the JAX package's copy."""
+    assert native.SOURCE == ROOT / 'tfep_tpu_torch' / 'native' / 'trajio.cpp'
+    assert native.SOURCE.is_file()
+    assert sorted(p.name for p in (ROOT / 'tfep_tpu_torch' / 'native')
+                  .iterdir()) == ['trajio.cpp']
+    assert native.BUILD_DIR == ROOT / 'build' / 'native'
+    assert 'tfep_tpu/' not in native.SOURCE.read_text().replace(
+        'tfep_tpu_torch/', '')
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     """The CPU-only view, also where a card is present."""
@@ -99,6 +123,8 @@ def no_card(monkeypatch):
     lambda: ContinuousEGNNMap(**_map_args()),
     lambda: MixedMAFMap(**_map_args()),
     lambda: FixedGraph(),
+    lambda: fep_estimator(np.zeros(3)),
+    lambda: bootstrap(np.zeros(3), fep_estimator, n_resamples=2),
     lambda: PeriodicEmbedding(3, [0.0, 1.0]),
     lambda: FlipInvariantEmbedding(torch.Generator(), 4, 2),
     lambda: MixedEmbedding(3, [torch.nn.Identity()], [[0]]),

@@ -13,9 +13,10 @@ memory when the map is on a card) and :meth:`batch_to_device` sends the
 floating ones to the map's device; the sample indices stay on the host,
 where the logger reads them.
 
-Not ported yet: the ``engine_overlap`` contract (``forward_step_fn``,
-``host_engine_eval``, ``pipelined_update_fn``) and reading the system from
-trajectory files.
+The system comes in memory or from trajectory files
+(:meth:`tfep_tpu_torch.io.traj.System.from_file`, lazily with
+``lazy_trajectory=True``). Not ported yet: the ``engine_overlap`` contract
+(``forward_step_fn``, ``host_engine_eval``, ``pipelined_update_fn``).
 """
 
 from __future__ import annotations
@@ -82,9 +83,10 @@ class TFEPMapBase:
     system : System, optional
         In-memory topology + frames.
     topology_file_path, coordinates_file_path : str, optional
-        Files to load the system from. Reading trajectory files is not
-        ported yet: passing ``coordinates_file_path`` raises
-        ``NotImplementedError``.
+        Files to load the system from: coordinates in PDB/GRO/XYZ or
+        binary DCD/XTC/TRR/AMBER NetCDF (which additionally need the
+        topology file — PDB/GRO/prmtop/.top/.psf). The hparams record only
+        the paths, so a map restored from a checkpoint rereads the files.
     batch_size : int
         Frames per optimization step.
     mapped_atoms, conditioning_atoms : selection, optional
@@ -102,7 +104,7 @@ class TFEPMapBase:
     ignore_nan : bool
         Ignore NaN energies (failed engine evaluations) in the loss.
     lazy_trajectory : bool
-        Stream binary trajectories from disk (with a file only).
+        Stream binary trajectories from disk per batch (with a file only).
     seed : int
         Seed of the ``torch.Generator`` that initializes the parameters.
     device : str or torch.device, optional
