@@ -109,6 +109,23 @@ Phases, each of which passes or exits non-zero:
    ``tests/app/test_biased.py`` drawn on the card: the unbiased and the
    biased intervals bracket the analytic Δf, the unweighted estimate on
    biased frames misses it.
+13. The potentials bridge: phase 9's map and weights trained against a
+   host engine, ``HarmonicEngine(EnginePotential)`` (phase 9's potential in
+   numpy float64, frame by frame, in kJ/mol and nm inside and kcal/mol and
+   angstrom outside). (a) On one batch: its energies against the torch
+   potential's, the loss gradients through the autograd bridge
+   (``-forces * g``) against autograd through the torch potential, and
+   the engine's calls (energy only without grad, with forces with it);
+   (b) one plain ``Trainer.fit`` step: K1/K2 at 6/6, phase 9's first loss;
+   (c) ``Trainer(engine_overlap=True)``: one step against (b)'s weights,
+   3 steps against a replay with delayed gradients, two epochs with
+   K1/K2 at 12/6 per step and the log rows in the sampler's order, a run
+   stopped at step 5 and resumed against the uninterrupted run; (d) a
+   ``spawn`` pool of 4 workers made after CUDA: energies and forces
+   bit-identical to the serial strategy's, one pipelined step on it;
+   (e) with a fixed host latency per batch (phase 9's step without the
+   logger): the engine alone, the copies each way, the plain and the
+   pipelined step, their device busy time and idle share.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -1339,6 +1356,47 @@ def app_orders(seed, n_epochs):
     return steps
 
 
+def app_system():
+    """Phase 9's System: APP_FRAMES Cartesian frames of the 32-atom
+    molecule in its 4-atom shell."""
+    from tfep_tpu_torch.io.topology import Topology
+    from tfep_tpu_torch.io.traj import System
+
+    n_mol = CART_ATOMS - CART_SOLVENT
+    topology = Topology(
+        names=[f'C{i}' for i in range(n_mol)] + ['OW'] * CART_SOLVENT,
+        resnames=['MOL'] * n_mol + ['SOL'] * CART_SOLVENT,
+        resids=[1] * n_mol + list(range(2, 2 + CART_SOLVENT)))
+    return System(topology, cartesian_frames(APP_FRAMES).reshape(
+        -1, CART_ATOMS, 3))
+
+
+def app_map(device, system, potential, logs, state=None):
+    """Phase 9's CartesianMAFMap on ``system`` with ``potential``, set up,
+    with phase 8's weights ``state`` where given; ``logs`` is the
+    logger's directory (None: no logger)."""
+    from tfep_tpu_torch.app import CartesianMAFMap
+    from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
+    from tfep_tpu_torch.units import ureg
+
+    n_mol = CART_ATOMS - CART_SOLVENT
+    spline = NeuralSplineTransformer(-3.0 * np.ones(CART_F),
+                                     3.0 * np.ones(CART_F), K,
+                                     device=device)
+    tfep_map = CartesianMAFMap(
+        potential_energy_func=potential,
+        temperature=300.0 * ureg.kelvin, system=system, batch_size=B,
+        tfep_logger_dir_path=logs,
+        mapped_atoms=list(range(1, n_mol)), conditioning_atoms=[0],
+        origin_atom=0, axes_atoms=[1, 2], pca_whitening=True,
+        n_maf_layers=N_LAYERS, flow_kwargs=dict(transformer=spline),
+        device=device, dtype=torch.float32)
+    tfep_map.setup()
+    if state is not None:
+        tfep_map.flow.load_state_dict(state, strict=True)
+    return tfep_map
+
+
 def app_phase(device, smi, handoff):
     """Phase 9: the port's CartesianMAFMap through Trainer.fit, checks
     (a)-(d), host and device times."""
@@ -1346,39 +1404,16 @@ def app_phase(device, smi, handoff):
     import shutil
     import tempfile
 
-    from tfep_tpu_torch.app import CartesianMAFMap, Trainer
-    from tfep_tpu_torch.io.topology import Topology
-    from tfep_tpu_torch.io.traj import System
-    from tfep_tpu_torch.loss import boltzmann_kl_div_loss
-    from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
+    from tfep_tpu_torch.app import Trainer
     from tfep_tpu_torch.ops.spline import LAUNCHES
-    from tfep_tpu_torch.units import ureg
 
     n_mol = CART_ATOMS - CART_SOLVENT
-    topology = Topology(
-        names=[f'C{i}' for i in range(n_mol)] + ['OW'] * CART_SOLVENT,
-        resnames=['MOL'] * n_mol + ['SOL'] * CART_SOLVENT,
-        resids=[1] * n_mol + list(range(2, 2 + CART_SOLVENT)))
-    system = System(topology, cartesian_frames(APP_FRAMES).reshape(
-        -1, CART_ATOMS, 3))
+    system = app_system()
     work = tempfile.mkdtemp(prefix='tfep_app_')
 
     def new_map(name, state=None):
-        spline = NeuralSplineTransformer(-3.0 * np.ones(CART_F),
-                                         3.0 * np.ones(CART_F), K,
-                                         device=device)
-        tfep_map = CartesianMAFMap(
-            potential_energy_func=HarmonicPotential(),
-            temperature=300.0 * ureg.kelvin, system=system, batch_size=B,
-            tfep_logger_dir_path=os.path.join(work, name, 'logs'),
-            mapped_atoms=list(range(1, n_mol)), conditioning_atoms=[0],
-            origin_atom=0, axes_atoms=[1, 2], pca_whitening=True,
-            n_maf_layers=N_LAYERS, flow_kwargs=dict(transformer=spline),
-            device=device, dtype=torch.float32)
-        tfep_map.setup()
-        if state is not None:
-            tfep_map.flow.load_state_dict(state, strict=True)
-        return tfep_map
+        return app_map(device, system, HarmonicPotential(),
+                       os.path.join(work, name, 'logs'), state)
 
     def trainer(name, **kwargs):
         kwargs.setdefault('max_epochs', APP_EPOCHS)
@@ -1413,6 +1448,7 @@ def app_phase(device, smi, handoff):
         one = Trainer(save_dir=None, max_steps=1, shuffle=False)
         one.fit(tfep_map)
         ours, theirs = one.loss_history[0], handoff['first_loss']
+        first_loss = ours
         diff = abs(ours - theirs) / max(1.0, abs(theirs))
         say(f'  (b) first loss: Trainer.fit {ours:.9g}, phase 8 step '
             f'{theirs:.9g}; difference {diff:.3e} of scale (tolerance '
@@ -1553,7 +1589,7 @@ def app_phase(device, smi, handoff):
             raise AssertionError('(d) the resumed weights differ')
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(setup_s=setup_s, step_ms=step_ms,
+    return dict(setup_s=setup_s, step_ms=step_ms, first_loss=first_loss,
                 frames_per_s=B / step_ms * 1e3, step_ms_without_logger=nolog_ms,
                 window_ms=window_ms,
                 busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
@@ -2516,6 +2552,541 @@ def file_phase(device, smi, mixed):
                 weights_identical=weights_same)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the potentials bridge. Phase 9's CartesianMAFMap trained against
+# a host engine through the autograd bridge, plainly and pipelined
+# (Trainer(engine_overlap=True)).
+# ---------------------------------------------------------------------------
+
+# (b), (c): steps of the short runs; (c) the stopped run's last step;
+# (e) Trainer.fit's steps between the two timed runs.
+ENGINE_REPLAY_STEPS = 3
+ENGINE_CRASH_STEP = 5
+ENGINE_TIMED_STEPS = 10
+ENGINE_POOL_WORKERS = 4
+# (a) The engine computes 0.5 kT |y|^2 in float64 from the float32 y and
+# returns float32; the torch potential computes it in float32: a few ulp
+# of the energy (about 1e-7 relative). A unit or kT fault is off by a
+# factor (4.184, 10, 100 or 600).
+ENGINE_ENERGY_TOL = 1e-5
+# (b) The first loss: phase 9's, where the engine's float64 energies
+# round to float32 once more (APP_LOSS_TOL's reasoning).
+ENGINE_LOSS_TOL = APP_LOSS_TOL
+# (a) The loss gradients through -forces * g against autograd through the
+# torch potential; (c) the gradients that each pipelined step hands its
+# optimizer (recorded at optimizer.step) against the plain step's and the
+# replay's. Per parameter tensor, |g - g_ref| / |g_ref| (L2 norms): the
+# same float32 flow backward fed a dL/dy that agrees to a few float32 ulp
+# per element, but a tensor whose gradient is a batch sum that cancels
+# (an output bias) keeps that rounding against a small norm: 2e-7 in (a)
+# and 1.4e-5 for the pipelined step against the plain one (the second
+# chip run of phase 13). A sign, unit or kT fault is off by 2, 3 or more;
+# a gradient at the wrong parameters by 1 (the layers behind the zero
+# output gains of the first step have none there): (c) fails unless the
+# undelayed gradients miss this tolerance.
+ENGINE_GRAD_TOL = 1e-3
+# (c) The weights after each such step. AdamW's first steps move a weight
+# by lr m / (sqrt(v) + eps) (lr = 1e-4, eps = 1e-8), about lr times a sign
+# where |g| is well above eps: a gradient element that is rounding noise
+# (a sum over the batch that cancels to about 1e-7) takes a step of up to
+# lr either way, so two runs that agree to float32 rounding may differ by
+# up to 2 lr per step at such elements (the first chip run of phase 13:
+# 9.9e-5 after one step). A tolerance of 2 lr per step.
+ENGINE_WEIGHT_TOL = 2e-4
+
+
+def harmonic_frame(k, positions, compute_forces):
+    """One frame of the harmonic engine, in its units: ``positions`` in nm
+    (float64, flattened), u = k |p|^2 in kJ/mol, forces -2 k p in kJ/mol/nm.
+    Module level, so that a spawned pool worker unpickles it."""
+    energy = k * float(np.dot(positions, positions))
+    return energy, (-2.0 * k * positions if compute_forces else None)
+
+
+def harmonic_engine(strategy=None, latency_s=0.0):
+    """A host engine (``EnginePotential``) computing phase 9's potential
+    u(y) = 0.5 kT |y|^2 (y in angstrom, u in kcal/mol at 300 K) in numpy
+    float64, frame by frame through ``strategy``, in its own units of kJ/mol
+    and nm: u = 50 kT |p|^2 with kT in kJ/mol. ``latency_s`` is a fixed
+    host latency per batch (a stand-in for an engine's own time). Each
+    call's ``compute_forces`` is recorded in ``calls``."""
+    from tfep_tpu_torch.potentials import EnginePotential
+    from tfep_tpu_torch.units import ureg
+
+    class HarmonicEngine(EnginePotential):
+        DEFAULT_ENERGY_UNIT = 'kilocalorie_per_mole'
+        DEFAULT_POSITIONS_UNIT = 'angstrom'
+        ENGINE_ENERGY_UNIT = 'kilojoule_per_mole'
+        ENGINE_POSITIONS_UNIT = 'nanometer'
+
+        def __init__(self):
+            super().__init__(parallelization_strategy=strategy)
+            self.k = 50.0 * float(ureg.kT(300.0 * ureg.kelvin,
+                                          ureg.kilojoule_per_mole).magnitude)
+            self.calls = []
+
+        def _compute_batch(self, positions, cell, compute_forces):
+            results = self.parallelization_strategy.run(
+                harmonic_frame,
+                [(self.k, p, compute_forces) for p in positions])
+            if latency_s:
+                time.sleep(latency_s)
+            self.calls.append(compute_forces)
+            energies = np.array([e for e, _ in results])
+            return energies, (np.stack([f for _, f in results])
+                              if compute_forces else None)
+
+    return HarmonicEngine()
+
+
+def copy_ms(y, n=20):
+    """CUDA-event times of the pipeline's two copies at this batch: the
+    mapped positions to pinned host memory, and the engine's energies and
+    forces back to the card."""
+    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    back = [torch.empty(y.shape[:1], dtype=y.dtype, pin_memory=True),
+            torch.empty(y.shape, dtype=y.dtype, pin_memory=True)]
+    times = {}
+    for name, copy in (
+            ('to_host', lambda: host.copy_(y, non_blocking=True)),
+            ('to_device', lambda: [t.to(y.device, non_blocking=True)
+                                   for t in back])):
+        copy()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            copy()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / n
+    return times
+
+
+def weights_diff(a, b):
+    """The largest |a - b| over two lists of tensors, and whether all are
+    equal."""
+    worst, same = 0.0, True
+    for x, y in zip(a, b):
+        worst = max(worst, float((x.detach() - y.detach()).abs().max()))
+        same &= bool(torch.equal(x.detach(), y.detach()))
+    return worst, same
+
+
+def recording(grads, before=None):
+    """An optimizer factory for ``Trainer``: ``default_optimizer`` whose
+    ``step`` first appends a copy of each parameter's gradient to
+    ``grads`` (and of the parameters it is about to update to
+    ``before``)."""
+    from tfep_tpu_torch.app.trainer import default_optimizer
+
+    def factory(params):
+        optimizer = default_optimizer(params)
+        step = optimizer.step
+
+        def recorded_step(*args, **kwargs):
+            grads.append([p.grad.detach().clone() for p in params])
+            if before is not None:
+                before.append([p.detach().clone() for p in params])
+            return step(*args, **kwargs)
+
+        optimizer.step = recorded_step
+        return optimizer
+
+    return factory
+
+
+def grads_diff(a, b):
+    """The largest |a - b| / |b| (L2 norms, per tensor) over two lists of
+    gradient tensors."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        diff, norm = float((x - y).norm()), float(y.norm())
+        worst = max(worst, diff / norm if norm else diff)
+    return worst
+
+
+def engine_phase(device, smi, handoff):
+    """Phase 13: checks (a)-(d) and the times (e). ``handoff`` holds phase
+    8's untrained weights, phase 9's first loss and its step without the
+    logger."""
+    import copy as copying
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.app import Trainer
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+    from tfep_tpu_torch.parallel import ProcessPoolStrategy
+
+    system = app_system()
+    state = handoff['state']
+    work = tempfile.mkdtemp(prefix='tfep_engine_')
+
+    def new_map(name, potential, logger=True):
+        return app_map(device, system, potential,
+                       os.path.join(work, name, 'logs') if logger else None,
+                       state)
+
+    def params(tfep_map):
+        return [p.detach().clone() for p in tfep_map.flow.parameters()]
+
+    def counted_fit(trainer, tfep_map, **kwargs):
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        trainer.fit(tfep_map, **kwargs)
+        torch.cuda.synchronize()
+        return LAUNCHES.forward, LAUNCHES.backward
+
+    try:
+        # (a) The bridge on one batch at phase 8's untrained weights.
+        engine = harmonic_engine()
+        tfep_map = new_map('a', engine)
+        torch_map = new_map('a_torch', HarmonicPotential())
+        batch = tfep_map.batch_to_device(tfep_map.host_tensors(
+            tfep_map.dataset.get_batch(np.arange(B))))
+        with torch.no_grad():
+            y = tfep_map.forward(batch)['positions']
+            ours, theirs = engine(y), HarmonicPotential()(y)
+        err, rel = rel_err(ours.double(), theirs.double())
+        say(f'  {type(engine).__name__}(EnginePotential): kJ/mol and nm '
+            f'inside, kcal/mol and angstrom outside, frame by frame in '
+            f'numpy float64 on SerialStrategy; phase [9]\'s map with phase '
+            f'[8]\'s weights, batch {B} (float32); {smi}')
+        say(f'  (a) engine energies - torch potential\'s: max|diff| '
+            f'{err:.3e}, {rel:.3e} of max(1, max|u|) (tolerance '
+            f'{ENGINE_ENERGY_TOL:g}); {ours.dtype} on {ours.device}')
+        if not (rel <= ENGINE_ENERGY_TOL and ours.dtype == torch.float32
+                and ours.device == y.device):
+            raise AssertionError('(a) the engine\'s energies differ')
+        grads = []
+        for m in (tfep_map, torch_map):
+            m.flow.zero_grad(set_to_none=True)
+            loss, _ = m.training_step_fn(m.flow, batch)
+            loss.backward()
+            grads.append([torch.zeros_like(p) if p.grad is None else p.grad
+                          for p in m.flow.parameters()])
+        worst, total, scale = 0.0, 0.0, 0.0
+        for g_bridge, g_torch in zip(*grads):
+            diff = float((g_bridge - g_torch).norm())
+            norm = float(g_torch.norm())
+            worst = max(worst, diff / norm if norm else diff)
+            total, scale = total + diff ** 2, scale + norm ** 2
+        with torch.no_grad():
+            tfep_map.training_step_fn(tfep_map.flow, batch)
+        say(f'  (a) loss gradients through -forces*g against autograd '
+            f'through the torch potential, {len(grads[0])} parameter '
+            f'tensors: largest |diff|/|g| per tensor {worst:.3e} (tolerance '
+            f'{ENGINE_GRAD_TOL:g}), over all {(total / scale) ** 0.5:.3e}; '
+            f'engine calls (compute_forces): {engine.calls} for an '
+            f'evaluation without grad, a loss with grad, a loss without')
+        if not worst <= ENGINE_GRAD_TOL:
+            raise AssertionError('(a) the bridge\'s gradient differs')
+        grad_err = worst
+        if engine.calls != [False, True, False]:
+            raise AssertionError('(a) the engine was called with '
+                                 f'{engine.calls}')
+        y_host = y.cpu().numpy()
+        del tfep_map, torch_map, batch, grads, y, ours, theirs
+
+        # (b) Trainer.fit on the plain path: one step.
+        plain_map = new_map('b', harmonic_engine())
+        plain_grads = []
+        plain = Trainer(save_dir=None, max_steps=1, shuffle=False,
+                        optimizer=recording(plain_grads))
+        plain_launches = counted_fit(plain, plain_map)
+        ours, theirs = plain.loss_history[0], handoff['first_loss']
+        diff = abs(ours - theirs) / max(1.0, abs(theirs))
+        say(f'  (b) Trainer.fit, 1 step: K1/K2 launches {plain_launches}; '
+            f'first loss {ours:.9g}, phase [9]\'s {theirs:.9g}: difference '
+            f'{diff:.3e} of scale (tolerance {ENGINE_LOSS_TOL:g})')
+        if plain_launches != (N_LAYERS, N_LAYERS):
+            raise AssertionError(f'(b) K1/K2 launched {plain_launches}')
+        if not (diff <= ENGINE_LOSS_TOL and np.isfinite(ours)):
+            raise AssertionError('(b) the first loss differs')
+        one_step = params(plain_map)
+        del plain_map, plain
+
+        # (c) Trainer.fit(engine_overlap=True): one step against (b).
+        pipe_map = new_map('c1', harmonic_engine())
+        pipe_grads = []
+        pipe = Trainer(save_dir=None, max_steps=1, shuffle=False,
+                       engine_overlap=True, optimizer=recording(pipe_grads))
+        one_launches = counted_fit(pipe, pipe_map)
+        grad_one = grads_diff(pipe_grads[0], plain_grads[0])
+        worst, same = weights_diff(params(pipe_map), one_step)
+        say(f'  (c) one pipelined step: K1/K2 launches {one_launches}; its '
+            f'gradients against (b)\'s: largest |diff|/|g| per tensor '
+            f'{grad_one:.3e} (tolerance {ENGINE_GRAD_TOL:g}); weights: '
+            f'max|diff| {worst:.3e} (tolerance {ENGINE_WEIGHT_TOL:g}), '
+            f'bit-identical: {same}; loss {pipe.loss_history[0]:.9g}')
+        if one_launches != (2 * N_LAYERS, N_LAYERS):
+            raise AssertionError(f'(c) K1/K2 launched {one_launches}')
+        if not (grad_one <= ENGINE_GRAD_TOL
+                and worst <= ENGINE_WEIGHT_TOL):
+            raise AssertionError('(c) one pipelined step differs from the '
+                                 'plain step')
+        pipe_one = params(pipe_map)
+        del pipe_map, pipe, plain_grads, pipe_grads
+
+        # (c) Three pipelined steps. Each update's gradient against the
+        # standard loss's (through the bridge) at the parameters of the
+        # step before, recorded in the run (the contract), and at those of
+        # its own step (an undelayed update); then the weights against a
+        # free-running replay with delayed gradients
+        # (tests/app/test_pipeline.py:77-143).
+        pipe_map = new_map('c3', harmonic_engine())
+        pipe_grads, pipe_before = [], []
+        Trainer(save_dir=None, max_steps=ENGINE_REPLAY_STEPS, shuffle=False,
+                engine_overlap=True,
+                optimizer=recording(pipe_grads, pipe_before)).fit(pipe_map)
+        pipelined = params(pipe_map)
+        del pipe_map
+        replay_map = new_map('replay', harmonic_engine())
+        flow = replay_map.flow
+        trainable = [p for p in flow.parameters() if p.requires_grad]
+        batches = [replay_map.batch_to_device(replay_map.host_tensors(
+            replay_map.dataset.get_batch(np.arange(k * B, (k + 1) * B))))
+            for k in range(ENGINE_REPLAY_STEPS)]
+
+        def gradient_at(values, batch):
+            with torch.no_grad():
+                for p, value in zip(trainable, values):
+                    p.copy_(value)
+            flow.zero_grad(set_to_none=True)
+            loss, _ = replay_map.training_step_fn(flow, batch)
+            loss.backward()
+            return [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                    for p in trainable]
+
+        grad_delayed = max(
+            grads_diff(pipe_grads[k], gradient_at(
+                pipe_before[max(0, k - 1)], batches[k]))
+            for k in range(ENGINE_REPLAY_STEPS))
+        grad_undelayed = max(
+            grads_diff(pipe_grads[k], gradient_at(pipe_before[k], batches[k]))
+            for k in range(1, ENGINE_REPLAY_STEPS))
+        with torch.no_grad():
+            for p, value in zip(trainable, pipe_before[0]):
+                p.copy_(value)
+        optimizer = recording([])(trainable)
+        history = [params(replay_map)]
+        for k in range(ENGINE_REPLAY_STEPS):
+            snap = copying.deepcopy(flow)
+            with torch.no_grad():
+                for p, value in zip(snap.parameters(),
+                                    history[max(0, k - 1)]):
+                    p.copy_(value)
+            loss, _ = replay_map.training_step_fn(snap, batches[k])
+            loss.backward()
+            for p, q in zip(trainable, [q for q in snap.parameters()
+                                        if q.requires_grad]):
+                p.grad = torch.zeros_like(p) if q.grad is None else q.grad
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            history.append(params(replay_map))
+            del snap, loss
+        worst, same = weights_diff(pipelined, history[-1])
+        say(f'  (c) {ENGINE_REPLAY_STEPS} pipelined steps: each update\'s '
+            f'gradient against the standard loss\'s at the parameters of '
+            f'the step before (recorded in the run): largest |diff|/|g| '
+            f'per tensor {grad_delayed:.3e} (tolerance '
+            f'{ENGINE_GRAD_TOL:g}); at its own step\'s parameters '
+            f'(undelayed) {grad_undelayed:.3e}; final weights against a '
+            f'replay with delayed gradients: max|diff| {worst:.3e} '
+            f'(tolerance {ENGINE_REPLAY_STEPS * ENGINE_WEIGHT_TOL:g}), '
+            f'bit-identical: {same}')
+        if not (grad_delayed <= ENGINE_GRAD_TOL < grad_undelayed
+                and worst <= ENGINE_REPLAY_STEPS * ENGINE_WEIGHT_TOL):
+            raise AssertionError('(c) the pipelined steps are not the '
+                                 'delayed replay')
+        del (pipe_grads, pipe_before, replay_map, flow, trainable, batches,
+             optimizer, history)
+
+        # (c) Two epochs pipelined: launches, finite losses, log rows in
+        # the sampler's order; then a run stopped at step 5 and resumed.
+        full_map = new_map('c', harmonic_engine())
+        full = Trainer(save_dir=os.path.join(work, 'c', 'ckpt'),
+                       max_epochs=APP_EPOCHS, shuffle=True, shuffle_seed=0,
+                       engine_overlap=True,
+                       checkpoint_every_n_steps=ENGINE_CRASH_STEP)
+        pipe_launches = counted_fit(full, full_map)
+        losses = np.asarray(full.loss_history)
+        say(f'  (c) Trainer(max_epochs={APP_EPOCHS}, shuffle_seed=0, '
+            f'engine_overlap=True): {full.global_step} steps, K1/K2 launches '
+            f'{pipe_launches} ({pipe_launches[0] / full.global_step:g}/'
+            f'{pipe_launches[1] / full.global_step:g} per step); losses '
+            f'{losses[0]:.6g} -> {losses[-1]:.6g}; engine calls '
+            f'{len(full_map._potential_energy_func.calls)}, all with forces: '
+            f'{all(full_map._potential_energy_func.calls)}')
+        if full.global_step != APP_STEPS or len(losses) != APP_STEPS:
+            raise AssertionError('(c) the trainer did not take 20 steps')
+        if pipe_launches != (2 * N_LAYERS * APP_STEPS, N_LAYERS * APP_STEPS):
+            raise AssertionError(f'(c) K1/K2 launched {pipe_launches}')
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError('(c) a loss is not finite')
+        calls = full_map._potential_energy_func.calls
+        if calls != [True] * APP_STEPS:
+            raise AssertionError(f'(c) the engine was called {calls}')
+        logger = full_map.tfep_logger
+        for step, indices in enumerate(app_orders(0, APP_EPOCHS)):
+            rows = logger.read_train_tensors(step_idx=step)
+            if not (np.array_equal(rows['dataset_sample_index'], indices)
+                    and np.all(np.isfinite(rows['potential']))
+                    and np.all(np.isfinite(rows['log_det_J']))):
+                raise AssertionError(f'(c) step {step} lacks its log rows')
+        say(f'  (c) every step\'s {B} rows in tfep_logger.read_train_tensors'
+            f', in the sampler\'s order for shuffle_seed=0, finite')
+        trained = params(full_map)
+        del full_map, full
+
+        stopped = Trainer(save_dir=os.path.join(work, 'd', 'ckpt'),
+                          max_steps=ENGINE_CRASH_STEP, shuffle=True,
+                          shuffle_seed=0, engine_overlap=True,
+                          checkpoint_every_n_steps=ENGINE_CRASH_STEP)
+        stopped.fit(new_map('d', harmonic_engine()))
+        resumed_map = new_map('d', harmonic_engine())
+        resumed = Trainer(save_dir=os.path.join(work, 'd', 'ckpt'),
+                          max_epochs=APP_EPOCHS, shuffle=True, shuffle_seed=0,
+                          engine_overlap=True,
+                          checkpoint_every_n_steps=ENGINE_CRASH_STEP)
+        resumed.fit(resumed_map, resume=True)
+        rows = resumed_map.tfep_logger.read_train_tensors(epoch_idx=0)
+        worst, same = weights_diff(params(resumed_map), trained)
+        say(f'  (c) stopped at step {ENGINE_CRASH_STEP} (the checkpoint '
+            f'keeps the next batch\'s snapshot), resumed: '
+            f'{len(resumed.loss_history)} more steps, epoch 0\'s '
+            f'{APP_FRAMES} samples each logged once; final weights against '
+            f'the uninterrupted run: max|diff| {worst:.3e} (tolerance '
+            f'{APP_RESUME_TOL:g}), bit-identical: {same}')
+        if not (resumed.global_step == APP_STEPS
+                and len(resumed.loss_history) == APP_STEPS - ENGINE_CRASH_STEP
+                and np.array_equal(np.sort(rows['dataset_sample_index']),
+                                   np.arange(APP_FRAMES))):
+            raise AssertionError('(c) the resumed run does not cover epoch 0 '
+                                 'once')
+        if not worst <= APP_RESUME_TOL:
+            raise AssertionError('(c) the resumed weights differ')
+        del resumed_map, resumed, stopped, trained
+
+        # (d) A spawn pool of 4 workers, made after CUDA has initialized.
+        serial = harmonic_engine()
+        t0 = time.perf_counter()
+        e_serial, f_serial = serial.compute_energies_and_forces(y_host)
+        serial_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with multiprocessing.get_context('spawn').Pool(
+                ENGINE_POOL_WORKERS) as pool:
+            start_s = time.perf_counter() - t0
+            pooled = harmonic_engine(ProcessPoolStrategy(pool))
+            pooled.compute_energies_and_forces(y_host)   # warm the workers
+            t0 = time.perf_counter()
+            e_pool, f_pool = pooled.compute_energies_and_forces(y_host)
+            pool_ms = 1e3 * (time.perf_counter() - t0)
+            pool_map = new_map('d_pool', pooled)
+            pool_trainer = Trainer(save_dir=None, max_steps=1, shuffle=False,
+                                   engine_overlap=True)
+            pool_trainer.fit(pool_map)
+            pool_step, pool_same = weights_diff(params(pool_map), pipe_one)
+            del pool_map
+        same = (np.array_equal(e_serial, e_pool)
+                and np.array_equal(f_serial, f_pool))
+        say(f'  (d) ProcessPoolStrategy over a spawn pool of '
+            f'{ENGINE_POOL_WORKERS} workers (started in {start_s:.2f} s, '
+            f'after CUDA): energies and forces of {B} frames bit-identical '
+            f'to SerialStrategy\'s: {same} (pool {pool_ms:.1f} ms, serial '
+            f'{serial_ms:.1f} ms, {e_pool.dtype}); one pipelined step on the '
+            f'pool against (c)\'s: max|diff| {pool_step:.3e}, bit-identical:'
+            f' {pool_same}')
+        if not same:
+            raise AssertionError('(d) the pool\'s results differ')
+        if not pool_same:
+            raise AssertionError('(d) the pool\'s step differs')
+
+        # (e) Times, with the engine given a fixed host latency per batch:
+        # phase 9's step without the logger, measured in this run.
+        latency_s = handoff['step_ms_without_logger'] / 1e3
+        slow = harmonic_engine(latency_s=latency_s)
+        engine_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            slow.compute_energies_and_forces(y_host)
+            engine_ms.append(1e3 * (time.perf_counter() - t0))
+        engine_ms = float(np.median(engine_ms))
+        copies = copy_ms(torch.as_tensor(y_host, device=device))
+        walls, host, launches = {}, {}, {}
+        for overlap in (False, True):
+            for steps in (ENGINE_TIMED_STEPS, 2 * ENGINE_TIMED_STEPS):
+                tfep_map = new_map('e', harmonic_engine(latency_s=latency_s),
+                                   logger=False)
+                timed = Trainer(save_dir=None, max_steps=steps, shuffle=True,
+                                shuffle_seed=0, engine_overlap=overlap)
+                t0 = time.perf_counter()
+                launches[overlap] = counted_fit(timed, tfep_map)
+                walls[overlap, steps] = time.perf_counter() - t0
+                host[overlap] = {name: 1e3 * total / calls for name, (
+                    total, calls) in timed.host_seconds.items()}
+                del tfep_map, timed
+        step_ms = {overlap: 1e3 * (walls[overlap, 2 * ENGINE_TIMED_STEPS]
+                                   - walls[overlap, ENGINE_TIMED_STEPS])
+                   / ENGINE_TIMED_STEPS for overlap in (False, True)}
+        busy_ms, window_ms = {}, {}
+        for overlap in (False, True):
+            tfep_map = new_map('e', harmonic_engine(latency_s=latency_s),
+                               logger=False)
+            profiled = Trainer(save_dir=None, max_steps=9, shuffle=True,
+                               shuffle_seed=0, engine_overlap=overlap,
+                               profile_dir=os.path.join(work, 'e', 'prof'),
+                               profile_steps=(3, 8))
+            profiled.fit(tfep_map)
+            window = profiled.profiled_step_times
+            kinds = kernel_kinds(profiled.profile)
+            busy_ms[overlap] = (sum(us for _, us in kinds.values())
+                                / len(window) / 1e3)
+            window_ms[overlap] = 1e3 * sum(window) / len(window)
+            del tfep_map, profiled
+        rest_ms = step_ms[False] - engine_ms
+        say(f'  (e) engine latency {latency_s * 1e3:.3f} ms per batch '
+            f'(phase [9]\'s step without the logger in this run); the engine '
+            f'alone {engine_ms:.3f} ms per batch of {B} (latency + '
+            f'{engine_ms - latency_s * 1e3:.3f} ms of numpy, frame by frame);'
+            f' copies: positions to pinned host {copies["to_host"]:.4f} ms, '
+            f'energies and forces to the card {copies["to_device"]:.4f} ms '
+            f'(CUDA events); {smi}')
+        for overlap, label in ((False, 'plain'), (True, 'pipelined')):
+            say(f'  (e) {label} Trainer.fit step without the logger: '
+                f'{step_ms[overlap]:.3f} ms ((fit of {2 * ENGINE_TIMED_STEPS} '
+                f'steps - fit of {ENGINE_TIMED_STEPS}) / {ENGINE_TIMED_STEPS})'
+                f', {B / step_ms[overlap] * 1e3:.0f} frames/s; device busy '
+                f'{busy_ms[overlap]:.3f} ms per step (profiled window of 5 '
+                f'steps, {window_ms[overlap]:.3f} ms per step there), idle '
+                f'share {1.0 - busy_ms[overlap] / step_ms[overlap]:.3f}; '
+                f'K1/K2 {launches[overlap]} in {2 * ENGINE_TIMED_STEPS} '
+                f'steps; host ms per call: ' + ', '.join(
+                    f'{name} {ms:.3f}' for name, ms in host[overlap].items()))
+        say(f'  (e) pipelined / plain {step_ms[True] / step_ms[False]:.3f}; '
+            f'max(engine, rest) {max(engine_ms, rest_ms):.3f} ms, engine + '
+            f'rest {step_ms[False]:.3f} ms (rest = plain step - engine = '
+            f'{rest_ms:.3f} ms); {smi}')
+        if launches[False] != (2 * ENGINE_TIMED_STEPS * N_LAYERS,) * 2 or \
+                launches[True] != (4 * ENGINE_TIMED_STEPS * N_LAYERS,
+                                   2 * ENGINE_TIMED_STEPS * N_LAYERS):
+            raise AssertionError(f'(e) K1/K2 launched {launches}')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=plain_launches, pipelined_launches=pipe_launches,
+                energy_rel_err=rel, grad_rel_err=grad_err,
+                engine_ms=engine_ms, latency_ms=latency_s * 1e3,
+                copy_ms=copies, step_ms=step_ms[False],
+                pipelined_step_ms=step_ms[True], busy_ms=busy_ms[False],
+                pipelined_busy_ms=busy_ms[True],
+                idle_share=1.0 - busy_ms[False] / step_ms[False],
+                pipelined_idle_share=1.0 - busy_ms[True] / step_ms[True],
+                host_ms=host[False], pipelined_host_ms=host[True],
+                pool_ms=pool_ms, serial_ms=serial_ms)
+
+
 def main():
     import threading
 
@@ -2586,6 +3157,11 @@ def main():
     say('[9] the entry point: the port\'s CartesianMAFMap on phase 8\'s '
         'configuration, trained through Trainer.fit')
     app = app_phase(device, smi, handoff)
+    # Phase 13 trains the same map from the same weights against an engine.
+    engine_handoff = dict(
+        state={k: v.cpu() for k, v in handoff['state'].items()},
+        first_loss=app['first_loss'],
+        step_ms_without_logger=app['step_ms_without_logger'])
     del handoff
     torch.cuda.empty_cache()
 
@@ -2603,6 +3179,12 @@ def main():
         'written as XTC + PDB, trained lazily from the file, estimated on '
         'the card')
     file_map = file_phase(device, smi, mixed)
+    torch.cuda.empty_cache()
+
+    say('[13] the potentials bridge: phase [9]\'s map trained against a host '
+        'engine through the autograd bridge, plainly and with '
+        'engine_overlap=True')
+    engine = engine_phase(device, smi, engine_handoff)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -2623,7 +3205,9 @@ def main():
                 'cartesian_slice': cart['launches'][which],
                 'cartesian_map': app['launches'][i],
                 'mixed_map': mixed['launches'][i],
-                'file_map': file_map['launches'][i]},
+                'file_map': file_map['launches'][i],
+                'engine_map': engine['launches'][i],
+                'engine_map_pipelined': engine['pipelined_launches'][i]},
             'max_abs_err': max(errors[which], cart['errors'][which],
                                mixed['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
@@ -2669,6 +3253,7 @@ def main():
                                  if k not in ('files', 'analysis')},
                     'files': file_map['files'],
                     'analysis': file_map['analysis'],
+                    'engine': engine,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

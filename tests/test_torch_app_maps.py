@@ -672,8 +672,8 @@ def test_profile_window_and_host_times(tmp_path):
 def test_sharding_and_engine_overlap_are_not_ported():
     with pytest.raises(NotImplementedError, match='sharding'):
         Trainer(max_steps=1, sharding=object())
-    with pytest.raises(NotImplementedError, match='engine_overlap'):
-        Trainer(max_steps=1, engine_overlap=True)
+    # engine_overlap is ported (tests/test_torch_pipeline.py): it builds.
+    assert Trainer(max_steps=1, engine_overlap=True).engine_overlap
     with pytest.raises(ValueError, match='max_epochs/max_steps'):
         Trainer()
 

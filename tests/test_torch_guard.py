@@ -162,3 +162,92 @@ def test_compute_dtype_is_not_ported():
     with pytest.raises(NotImplementedError):
         MaskedLinear(torch.Generator(), 3, 4, device='cpu',
                      compute_dtype='bfloat16')
+
+
+# --------------------------------------------------------------------------
+# The engine bridge: optional engines, spawn-safe imports.
+# --------------------------------------------------------------------------
+
+ENGINES = {'ase', 'openmm', 'psi4', 'tblite'}
+ENGINE_FILES = sorted((ROOT / 'tfep_tpu_torch' / 'potentials').glob('*.py')
+                      ) + sorted((ROOT / 'tfep_tpu_torch' / 'parallel')
+                                 .glob('*.py'))
+
+
+def _guarded_engine_imports(path):
+    """Each import of an engine package: ``(line, how)``, where ``how`` is
+    'try' (in a ``try`` whose handlers catch ImportError), 'function'
+    (inside a function body) or 'module' (neither)."""
+    found = []
+
+    def visit(node, how):
+        for child in ast.iter_child_nodes(node):
+            child_how = how
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                child_how = 'function'
+            elif isinstance(child, ast.Try) and how == 'module' and any(
+                    isinstance(h.type, ast.Name)
+                    and h.type.id in ('ImportError', 'ModuleNotFoundError')
+                    for h in child.handlers):
+                for stmt in child.body:
+                    visit_stmt(stmt, 'try')
+                for part in child.handlers + child.orelse + child.finalbody:
+                    visit_stmt(part, how)
+                continue
+            visit_stmt(child, child_how)
+
+    def visit_stmt(node, how):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        if any(n.split('.')[0] in ENGINES for n in names):
+            found.append((node.lineno, how))
+        visit(node, how)
+
+    visit(ast.parse(path.read_text(), str(path)), 'module')
+    return found
+
+
+@pytest.mark.parametrize('path', ENGINE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_engines_imported_only_when_guarded(path):
+    assert all(how != 'module' for _, how in _guarded_engine_imports(path))
+
+
+def test_each_engine_wrapper_imports_its_engine_guarded():
+    for name in ENGINES:
+        found = _guarded_engine_imports(
+            ROOT / 'tfep_tpu_torch' / 'potentials' / f'{name}.py')
+        assert found and all(how in ('try', 'function') for _, how in found)
+
+
+def test_potentials_import_without_engines_cuda_or_jax():
+    """``import tfep_tpu_torch.potentials`` (and ``parallel`` and
+    ``utils.plumed``) succeeds in a fresh interpreter where the four
+    engines cannot be imported, and neither initializes CUDA nor imports
+    JAX: a spawned pool worker does the same imports."""
+    import os
+    import subprocess
+    import sys
+    script = (
+        'import importlib.abc, sys\n'
+        'class Block(importlib.abc.MetaPathFinder):\n'
+        '    def find_spec(self, name, path, target=None):\n'
+        f'        if name.split(".")[0] in {sorted(ENGINES)!r}:\n'
+        '            raise ImportError(name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import tfep_tpu_torch.potentials as p, tfep_tpu_torch.parallel\n'
+        'import tfep_tpu_torch.utils.plumed, torch\n'
+        'assert not (p.ase.ASE_INSTALLED or p.openmm.OPENMM_INSTALLED\n'
+        '            or p.psi4.PSI4_INSTALLED or p.tblite.TBLITE_INSTALLED)\n'
+        'assert not torch.cuda.is_initialized()\n'
+        'assert not any(m == "jax" or m.startswith(("jax.", "tfep_tpu."))\n'
+        '               or m == "tfep_tpu" for m in sys.modules)\n'
+        'print("ok")\n')
+    result = subprocess.run([sys.executable, '-c', script], cwd=ROOT,
+                            capture_output=True, text=True, timeout=120,
+                            env={**os.environ, 'PYTHONPATH': str(ROOT)})
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == 'ok'

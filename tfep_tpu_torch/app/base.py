@@ -15,8 +15,11 @@ where the logger reads them.
 
 The system comes in memory or from trajectory files
 (:meth:`tfep_tpu_torch.io.traj.System.from_file`, lazily with
-``lazy_trajectory=True``). Not ported yet: the ``engine_overlap`` contract
-(``forward_step_fn``, ``host_engine_eval``, ``pipelined_update_fn``).
+``lazy_trajectory=True``). The target potential is a torch function or an
+:class:`~tfep_tpu_torch.potentials.EnginePotential`; for the latter the
+map also offers the split step that ``Trainer(engine_overlap=True)``
+pipelines (``forward_step_fn``, ``host_engine_eval``,
+``pipelined_update_fn``).
 """
 
 from __future__ import annotations
@@ -559,6 +562,83 @@ class TFEPMapBase:
             'dataset_sample_index': batch['dataset_sample_index'],
             'trajectory_sample_index': batch['trajectory_sample_index'],
             'loss': loss,
+        }
+        return loss, aux
+
+    # ------------------------------------------------------------------ #
+    # Pipelined (engine-overlap) training contract: the step is split so
+    # the trainer can run the external engine on the host while the card
+    # works. The engine sees y(θ_k); the update computes the exact loss
+    # gradient at θ_k via a surrogate whose potential term is
+    # sum(-forces * y) with the forces held constant — the same cotangent
+    # the autograd bridge injects (bridge.py, backward).
+    # ------------------------------------------------------------------ #
+    def forward_step_fn(self, flow, batch: Dict) -> Dict:
+        """The flow's forward only (no potential): the pipeline's phase A."""
+        return self._run_flow(flow, batch, inverse=False)
+
+    def host_engine_eval(self, mapped_positions, batch: Dict):
+        """Blocking host-side engine evaluation: the pipeline's phase B.
+
+        ``mapped_positions`` and the batch's ``dimensions`` and
+        ``trajectory_sample_index`` are on the host (numpy arrays or CPU
+        tensors). Returns ``(potentials_kT, forces_kT)`` — per-sample
+        reduced potentials and forces in 1/kT units, numpy.
+        """
+        potential = self._potential_energy_func
+        kwargs = {}
+        if getattr(potential, 'uses_sample_keys', False):
+            kwargs['sample_keys'] = np.asarray(
+                batch['trajectory_sample_index'])
+        cell = (np.asarray(batch['dimensions']) if 'dimensions' in batch
+                else None)
+        energies, forces = potential.compute_energies_and_forces(
+            np.asarray(mapped_positions), cell, **kwargs)
+        return energies / self.kT, forces / self.kT
+
+    def pipelined_update_fn(self, flow, batch: Dict, potentials_kT,
+                            forces_kT):
+        """The loss of phase C, differentiable through the flow.
+
+        The value reported in ``aux['loss']`` is the true TFEP loss; the
+        returned differentiable loss is the force-linearized surrogate
+        (identical gradient at the parameters the engine evaluated).
+        ``potentials_kT`` and ``forces_kT`` are tensors on the batch's
+        device.
+        """
+        result = self._run_flow(flow, batch, inverse=False)
+        surrogate = torch.sum(-forces_kT.detach() * result['positions'],
+                              dim=-1)
+        # Engine failures (NaN energy, zero forces) must keep poisoning
+        # the sample so the NaN policy applies to the surrogate too.
+        surrogate = surrogate.masked_fill(torch.isnan(potentials_kT),
+                                          float('nan'))
+
+        if 'log_weights' in batch:
+            log_weights = batch['log_weights']
+        elif 'bias' in batch:
+            log_weights = batch['bias'] / self.kT
+        else:
+            log_weights = None
+
+        loss = boltzmann_kl_div_loss(
+            target_potentials=surrogate, log_det_J=result['log_det_J'],
+            log_weights=log_weights, ignore_nan=self._ignore_nan)
+        log_det_J = result['log_det_J'].detach()
+        true_loss = boltzmann_kl_div_loss(
+            target_potentials=potentials_kT, log_det_J=log_det_J,
+            log_weights=log_weights, ignore_nan=self._ignore_nan)
+        if 'regularization' in result:
+            reg = torch.mean(result['regularization'])
+            loss = loss + reg
+            true_loss = true_loss + reg.detach()
+
+        aux = {
+            'potential': potentials_kT,
+            'log_det_J': log_det_J,
+            'dataset_sample_index': batch['dataset_sample_index'],
+            'trajectory_sample_index': batch['trajectory_sample_index'],
+            'loss': true_loss,
         }
         return loss, aux
 

@@ -15,8 +15,12 @@ the host writes step k-1's log rows while the card runs step k. Only a
 checkpoint (which acknowledges its step) and the end of the run wait for
 the last step.
 
-Not ported yet: ``sharding`` (data parallelism) and ``engine_overlap``
-(the pipelined external engine); setting either raises
+Engine overlap (``engine_overlap=True``): the flow's forward of batch
+k+1 runs on the card while a host thread runs the external engine on
+batch k, and each update applies the exact gradient at the parameters the
+engine saw (one step delayed). See :meth:`Trainer._fit_pipelined`.
+
+Not ported yet: ``sharding`` (data parallelism); setting it raises
 ``NotImplementedError``.
 """
 
@@ -73,7 +77,9 @@ class Trainer:
     prefetch : bool, optional
         Read the next batch (``dataset.get_batch`` and the copy into
         pinned memory) on a background thread while the current step
-        runs. Identical math and resume semantics either way.
+        runs. Identical math and resume semantics either way. Ignored by
+        the ``engine_overlap`` pipeline, which already overlaps host work
+        with device compute.
     drop_last : bool, optional
         Drop the final incomplete batch of each epoch.
     sharding : optional
@@ -83,8 +89,15 @@ class Trainer:
         console output. The loss of every step is recorded in
         :attr:`loss_history` regardless.
     engine_overlap : bool, optional
-        The pipelined external-engine loop; not ported yet (raises
-        ``NotImplementedError``).
+        Pipeline the target-potential engine against device compute: the
+        flow forward of batch k+1 runs while the host engine evaluates
+        batch k, and each update applies the exact loss gradient at the
+        parameters the engine saw (one-step delayed, standard pipelined
+        SGD). Step time approaches max(device, engine) instead of their
+        sum. Requires the map to implement the ``forward_step_fn`` /
+        ``host_engine_eval`` / ``pipelined_update_fn`` contract
+        (TFEPMapBase does) with an
+        :class:`~tfep_tpu_torch.potentials.EnginePotential` target.
     profile_dir : str, optional
         Trace steps ``profile_steps`` with ``torch.profiler`` and write the
         trace to ``profile_dir/trace.json`` (Chrome/Perfetto format). The
@@ -102,7 +115,12 @@ class Trainer:
         prefetch thread when ``prefetch``), ``to_device`` (enqueuing the
         copy to the device), ``step`` (enqueuing forward, backward and
         update), ``wait`` (waiting for a finished step's aux), ``log``
-        (the logger and the loss channel) and ``checkpoint``.
+        (the logger and the loss channel) and ``checkpoint``. The
+        ``engine_overlap`` pipeline adds ``forward`` (enqueuing phase A,
+        the forward whose positions go to the engine), ``engine`` (the
+        engine's host call, on its thread) and ``engine_wait`` (the main
+        thread waiting for an engine result); its ``step`` enqueues the
+        update of phase C.
     """
 
     CHECKPOINT_NAME = 'last.ckpt'
@@ -127,9 +145,6 @@ class Trainer:
             raise NotImplementedError(
                 'sharding (data parallelism) is not ported to '
                 'tfep_tpu_torch yet.')
-        if engine_overlap:
-            raise NotImplementedError(
-                'engine_overlap is not ported to tfep_tpu_torch yet.')
         self.save_dir = save_dir
         self.max_epochs = max_epochs
         self.max_steps = max_steps
@@ -141,6 +156,7 @@ class Trainer:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.log_every_n_steps = log_every_n_steps
+        self.engine_overlap = engine_overlap
 
         self.profile_dir = profile_dir
         self.profile_steps = tuple(profile_steps)
@@ -154,6 +170,7 @@ class Trainer:
         self._profiler = None
         self._profile_marks: list = []
         self._on_card = False
+        self._resume_snapshot = None
 
     # ------------------------------------------------------------------ #
     @property
@@ -194,9 +211,10 @@ class Trainer:
         if resume:
             self._load_checkpoint(flow, optimizer, sampler)
 
+        loop = self._fit_pipelined if self.engine_overlap else self._fit_loop
         try:
-            pending = self._fit_loop(tfep_map, sampler, flow, optimizer,
-                                     params, n_batches)
+            pending = loop(tfep_map, sampler, flow, optimizer, params,
+                           n_batches)
         finally:
             self._stop_profiler()
         if pending is not None:
@@ -276,6 +294,162 @@ class Trainer:
                     p.grad = torch.zeros_like(p)
             optimizer.step()
             return _aux_to_host(aux)
+
+    # ------------------------------------------------------------------ #
+    def _fit_pipelined(self, tfep_map, sampler, flow, optimizer, params,
+                       n_batches):
+        """Engine-overlap loop: the forward of batch k+1 runs on the device
+        while a host thread runs the engine on batch k; each update applies
+        the exact gradient at the parameters the engine saw (one-step
+        delayed SGD).
+
+        ``optimizer.step()`` changes the parameters in place, so each
+        batch keeps a snapshot (a clone) of the trainable parameters its
+        forward saw; its update differentiates the map's surrogate loss
+        through ``torch.func.functional_call`` on that snapshot and writes
+        the gradients into the current parameters' ``.grad``. The
+        positions reach the engine thread through pinned memory and an
+        event recorded right after the forward, so the copy never waits
+        for the update enqueued behind it; the engine's results come back
+        through pinned memory with a non-blocking copy.
+
+        The pipeline drains at each epoch boundary. A checkpoint taken
+        mid-epoch also stores the snapshot of the next batch (the
+        parameters before the last update), so a resumed run continues
+        on the same delayed gradients as a run that was not stopped.
+        Returns the last step's aux, as :meth:`_fit_loop` does.
+        """
+        names = [name for name, p in flow.named_parameters()
+                 if p.requires_grad]
+        executor = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix='tfep-engine')
+        in_flight = None  # (future, snapshot, batch, epoch_idx, batch_idx)
+        logged = None     # (host aux, its event, epoch_idx, batch_idx)
+        next_snapshot, self._resume_snapshot = self._resume_snapshot, None
+
+        def on_snapshot(snapshot):
+            return _SnapshotFlow(flow, dict(zip(names, snapshot)))
+
+        def apply(entry):
+            """Phase C of ``entry``: its update, logging, checkpoint."""
+            nonlocal logged
+            future, snapshot, batch, epoch_idx, batch_idx = entry
+            step = self.global_step + 1
+            checkpoint = (self.checkpoint_path is not None
+                          and step % self.checkpoint_every_n_steps == 0)
+            keep = None
+            if checkpoint and in_flight is not None:
+                keep = in_flight[1]
+            elif checkpoint and step % n_batches != 0:
+                # Stopped mid-epoch: the next batch's forward would have
+                # seen the parameters before this update.
+                keep = [p.detach().clone() for p in params]
+            with self._timed('engine_wait'):
+                potentials, forces = future.result()
+            self._profile_tick()
+            with self._timed('step'):
+                like = batch['positions']
+                potentials, forces = (
+                    t.to(like.device, like.dtype, non_blocking=True)
+                    for t in (potentials, forces))
+                leaves = [s.requires_grad_() for s in snapshot]
+                loss, aux = tfep_map.pipelined_update_fn(
+                    on_snapshot(leaves), batch, potentials, forces)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                # An unread parameter gets zeros, as on the plain path.
+                for p, g in zip(params, grads):
+                    p.grad = torch.zeros_like(p) if g is None else g
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                host_aux = _aux_to_host(aux)
+            if logged is not None:
+                self._consume_aux(tfep_map, *logged)
+            logged = (*host_aux, epoch_idx, batch_idx)
+            self.global_step = step
+            # Derived like in _fit_loop: checkpoints written at an epoch
+            # boundary must store the next epoch.
+            self.current_epoch = self.global_step // n_batches
+            self._profile_tock()
+            if checkpoint:
+                self._consume_aux(tfep_map, *logged)
+                logged = None
+                with self._timed('checkpoint'):
+                    self._save_checkpoint(
+                        flow, optimizer, sampler, tfep_map,
+                        None if keep is None else dict(zip(names, keep)))
+
+        # Forward passes run one batch ahead of applied updates.
+        fwd_count = self.global_step
+        stop = False
+        try:
+            while not stop:
+                if self.max_epochs is not None and \
+                        self.current_epoch >= self.max_epochs:
+                    break
+                if self.max_steps is not None and \
+                        self.global_step >= self.max_steps:
+                    break
+                epoch_idx = self.current_epoch
+                for indices in sampler:
+                    host_batch = self._read(tfep_map, indices)
+                    batch_idx = fwd_count % n_batches
+                    batch = self._device_batch(tfep_map, host_batch,
+                                               step=fwd_count)
+                    fwd_count += 1
+
+                    # Phase A (device): the forward at the parameters of
+                    # this moment, kept as the batch's snapshot.
+                    snapshot = next_snapshot
+                    if snapshot is None:
+                        snapshot = [p.detach().clone() for p in params]
+                    next_snapshot = None
+                    with self._timed('forward'), torch.no_grad():
+                        result = tfep_map.forward_step_fn(
+                            on_snapshot(snapshot), batch)
+                        mapped, ready = _aux_to_host(
+                            {'positions': result['positions']})
+                    # Phase B (host thread): the engine on this batch.
+                    future = executor.submit(
+                        self._engine_eval, tfep_map, mapped['positions'],
+                        ready, host_batch)
+                    # Phase C: finish the previous batch while the engine
+                    # works on this one.
+                    previous, in_flight = in_flight, (
+                        future, snapshot, batch, epoch_idx, batch_idx)
+                    if previous is not None:
+                        apply(previous)
+
+                    if self.max_steps is not None and \
+                            self.global_step + 1 >= self.max_steps:
+                        stop = True
+                        break
+                else:
+                    # Drain before the sampler restarts: its resume
+                    # arithmetic (and the derived current_epoch) come
+                    # from global_step, which must not lag at the boundary.
+                    if in_flight is not None:
+                        last, in_flight = in_flight, None
+                        apply(last)
+                    continue
+                break
+
+            if in_flight is not None:
+                last, in_flight = in_flight, None
+                apply(last)
+        finally:
+            executor.shutdown(wait=False, cancel_futures=True)
+        return logged
+
+    def _engine_eval(self, tfep_map, positions, ready, host_batch):
+        """Phase B on the engine thread: wait for the positions' copy (and
+        nothing else), run the engine, return its reduced potentials and
+        forces as CPU tensors (pinned when the map is on a card)."""
+        if ready is not None:
+            ready.synchronize()
+        with self._timed('engine'):
+            results = tfep_map.host_engine_eval(positions.numpy(),
+                                                host_batch)
+        return tuple(_pinned(np.asarray(r), self._on_card) for r in results)
 
     # ------------------------------------------------------------------ #
     def _timed(self, name):
@@ -383,7 +557,8 @@ class Trainer:
                       + (f' {extras}' if extras else ''), flush=True)
 
     # ------------------------------------------------------------------ #
-    def _save_checkpoint(self, flow, optimizer, sampler, tfep_map=None):
+    def _save_checkpoint(self, flow, optimizer, sampler, tfep_map=None,
+                         pipeline_snapshot=None):
         os.makedirs(self.save_dir, exist_ok=True)
         state = {
             'format_version': CHECKPOINT_FORMAT_VERSION,
@@ -393,6 +568,9 @@ class Trainer:
             'current_epoch': self.current_epoch,
             'sampler_state': sampler.state_dict(),
         }
+        if pipeline_snapshot is not None:
+            # The engine_overlap pipeline's next forward runs on these.
+            state['pipeline_snapshot'] = pipeline_snapshot
         config = getattr(self, '_map_config', None)
         state.update(_map_config_entries(tfep_map)
                      if config is None else config)
@@ -410,6 +588,12 @@ class Trainer:
         self.global_step = state['global_step']
         self.current_epoch = state['current_epoch']
         sampler.load_state_dict(state['sampler_state'])
+        snapshot = state.get('pipeline_snapshot')
+        if snapshot is not None and self.engine_overlap:
+            named = dict(flow.named_parameters())
+            self._resume_snapshot = [
+                snapshot[name].to(named[name].device, named[name].dtype)
+                for name, p in named.items() if p.requires_grad]
 
 
 class _Timer:
@@ -441,6 +625,27 @@ def _seconds_between(a, b) -> float:
     if isinstance(a, float):
         return b - a
     return a.elapsed_time(b) / 1e3
+
+
+class _SnapshotFlow:
+    """``flow`` run on other values of its trainable parameters (a
+    ``{name: tensor}`` dict; tied parameters stay tied)."""
+
+    def __init__(self, flow, parameters):
+        self.flow, self.parameters = flow, parameters
+
+    def forward(self, *args, **kwargs):
+        return torch.func.functional_call(self.flow, self.parameters, args,
+                                          kwargs)
+
+
+def _pinned(array: np.ndarray, on_card: bool) -> torch.Tensor:
+    """A host array as a CPU tensor, in pinned memory when ``on_card``."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if not on_card:
+        return tensor
+    return torch.empty(tensor.shape, dtype=tensor.dtype,
+                       pin_memory=True).copy_(tensor)
 
 
 def _aux_to_host(aux: Dict):
