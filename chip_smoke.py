@@ -126,6 +126,23 @@ Phases, each of which passes or exits non-zero:
    (e) with a fixed host latency per batch (phase 9's step without the
    logger): the engine alone, the copies each way, the plain and the
    pipelined step, their device busy time and idle share.
+14. Ensembles and bf16 products. (a) ``benchmarks/ensemble_bench.py``'s
+   configuration (phase 3's flow, batch 256 shared by the members, AdamW)
+   trained as K members stacked by ``stack_modules`` through
+   ``make_ensemble_train_step`` (``torch.func.vmap`` of
+   ``grad_and_value``), K in 1, 2, 4, 8, 16: K1/K2 launched once per layer
+   on the members' rows folded together (6/6 per step at every K), the
+   step from CUDA events, member-steps/s, peak memory, the device busy
+   share at K=1 and K=16; at K=4 each member's first loss, first
+   gradients and weights after 3 steps against the member trained alone;
+   the folded K1/K2 against their plain version on the same rows.
+   (b) Phase 3's MAF with ``compute_dtype='bfloat16'`` on phase 3's
+   weights: y, log_det_J and the loss against float32, 5 counted
+   training steps, a round trip, the step, device busy and cuBLAS time
+   beside phase 3's float32 ones, the card's bf16 product against the
+   exact rule (float32 product of the rounded operands) on the card; then
+   ``cnf_bench``'s EGNN field on the dense path with bf16 products against
+   float32, without grad.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -280,26 +297,28 @@ def kernel_resources(device):
             f'spills per thread; block {tile}')
 
 
-def build_slice(device):
-    """The bench configuration with the port's entry points."""
+def build_slice(device, seed=SEED, batch=B, compute_dtype=None):
+    """The bench configuration with the port's entry points: the flow and
+    ``batch`` frames, from ``seed``."""
     from tfep_tpu_torch.nn.conditioners.made import generate_degrees
     from tfep_tpu_torch.nn.flows import MAF, SequentialFlow
     from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
-    generator = torch.Generator().manual_seed(SEED)
+    generator = torch.Generator().manual_seed(seed)
     bound = np.ones(F)
     layers = [MAF.create(
         generator, generate_degrees(
             F, order='ascending' if i % 2 == 0 else 'descending'),
         transformer=NeuralSplineTransformer(-3.0 * bound, 3.0 * bound, K,
                                             device=device),
-        device=device, dtype=torch.float32) for i in range(N_LAYERS)]
+        device=device, dtype=torch.float32, compute_dtype=compute_dtype)
+        for i in range(N_LAYERS)]
     flow = SequentialFlow.create(*layers, device=device)
     # Random weights: identity initialization zeroes the output gains,
     # which would make every spline the identity.
     with torch.no_grad():
         for p in flow.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=generator).to(p))
-    frames = torch.randn(B, F, generator=generator).to(device)
+    frames = torch.randn(batch, F, generator=generator).to(device)
     return flow, frames
 
 
@@ -606,7 +625,8 @@ def kernel_kinds(prof):
             kind = 'spline kernels (K1, K2)'
         elif 'egnn_' in name or 'reduce_partials' in name:
             kind = 'EGNN kernels (K3, K4, K5)'
-        elif any(s in name for s in ('gemm', 'xmma', 'cutlass', 'sm90_')):
+        elif any(s in name for s in ('gemm', 'xmma', 'cutlass', 'sm90_',
+                                     'nvjet')):
             kind = 'matrix products (cuBLAS)'
         elif 'multi_tensor' in name or 'adam' in name:
             kind = 'optimizer'
@@ -619,9 +639,10 @@ def kernel_kinds(prof):
     return kinds
 
 
-def profile_phase(train_step, step_ms, smi, n=5, batch=B):
+def profile_phase(train_step, step_ms, smi, n=5, batch=B, kinds_out=None):
     """Device time of the training step by kernel, from torch.profiler:
-    the busy share of the step and the time by kind of kernel."""
+    the busy share of the step and the time by kind of kernel (also into
+    ``kinds_out``, where given, as ``{kind: (kernels, ms) per step}``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(min(n, 3)):
         train_step()
@@ -633,6 +654,9 @@ def profile_phase(train_step, step_ms, smi, n=5, batch=B):
         torch.cuda.synchronize()
     kinds = kernel_kinds(prof)
     busy_ms = sum(us for _, us in kinds.values()) / n / 1e3
+    if kinds_out is not None:
+        kinds_out.update({kind: (count / n, us / n / 1e3)
+                          for kind, (count, us) in kinds.items()})
     lines = [smi, f'training step, batch {batch}, {n} steps profiled; '
              f'unprofiled step {step_ms:.3f} ms']
     if busy_ms == 0.0:
@@ -2573,17 +2597,19 @@ ENGINE_ENERGY_TOL = 1e-5
 # round to float32 once more (APP_LOSS_TOL's reasoning).
 ENGINE_LOSS_TOL = APP_LOSS_TOL
 # (a) The loss gradients through -forces * g against autograd through the
-# torch potential; (c) the gradients that each pipelined step hands its
-# optimizer (recorded at optimizer.step) against the plain step's and the
-# replay's. Per parameter tensor, |g - g_ref| / |g_ref| (L2 norms): the
-# same float32 flow backward fed a dL/dy that agrees to a few float32 ulp
-# per element, but a tensor whose gradient is a batch sum that cancels
-# (an output bias) keeps that rounding against a small norm: 2e-7 in (a)
-# and 1.4e-5 for the pipelined step against the plain one (the second
-# chip run of phase 13). A sign, unit or kT fault is off by 2, 3 or more;
-# a gradient at the wrong parameters by 1 (the layers behind the zero
-# output gains of the first step have none there): (c) fails unless the
-# undelayed gradients miss this tolerance.
+# torch potential, per parameter tensor |g - g_ref| / |g_ref| (L2 norms):
+# the same float32 flow backward fed a dL/dy that agrees to a few float32
+# ulp per element; the chip runs of phase 13 measured 2.0e-7. A sign, unit
+# or kT fault is off by 2, 3 or more.
+ENGINE_BRIDGE_GRAD_TOL = 1e-5
+# (c) The gradients that each pipelined step hands its optimizer
+# (recorded at optimizer.step) against the plain step's and the replay's,
+# per tensor as in (a): a tensor whose gradient is a batch sum that
+# cancels (an output bias) keeps the rounding against a small norm, 1.4e-5
+# for the pipelined step against the plain one (the second chip run of
+# phase 13). A gradient at the wrong parameters is off by 1 (the layers
+# behind the zero output gains of the first step have none there): (c)
+# fails unless the undelayed gradients miss this tolerance.
 ENGINE_GRAD_TOL = 1e-3
 # (c) The weights after each such step. AdamW's first steps move a weight
 # by lr m / (sqrt(v) + eps) (lr = 1e-4, eps = 1e-8), about lr times a sign
@@ -2778,10 +2804,11 @@ def engine_phase(device, smi, handoff):
         say(f'  (a) loss gradients through -forces*g against autograd '
             f'through the torch potential, {len(grads[0])} parameter '
             f'tensors: largest |diff|/|g| per tensor {worst:.3e} (tolerance '
-            f'{ENGINE_GRAD_TOL:g}), over all {(total / scale) ** 0.5:.3e}; '
-            f'engine calls (compute_forces): {engine.calls} for an '
-            f'evaluation without grad, a loss with grad, a loss without')
-        if not worst <= ENGINE_GRAD_TOL:
+            f'{ENGINE_BRIDGE_GRAD_TOL:g}), over all '
+            f'{(total / scale) ** 0.5:.3e}; engine calls (compute_forces): '
+            f'{engine.calls} for an evaluation without grad, a loss with '
+            f'grad, a loss without')
+        if not worst <= ENGINE_BRIDGE_GRAD_TOL:
             raise AssertionError('(a) the bridge\'s gradient differs')
         grad_err = worst
         if engine.calls != [False, True, False]:
@@ -3087,6 +3114,353 @@ def engine_phase(device, smi, handoff):
                 pool_ms=pool_ms, serial_ms=serial_ms)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: vmapped ensembles at benchmarks/ensemble_bench.py's
+# configuration, and mixed-precision products (compute_dtype='bfloat16').
+# ---------------------------------------------------------------------------
+
+ENSEMBLE_BATCH = 256
+ENSEMBLE_MEMBERS = (1, 2, 4, 8, 16)
+ENSEMBLE_PROFILED = (1, 16)
+ENSEMBLE_CHECKED = 4
+ENSEMBLE_COUNTED_STEPS = 3
+ENSEMBLE_TIMED_STEPS = 20
+# (a) Each member of the ensemble against the member trained alone, on the
+# card: the same float32 products, batched over the members (cuBLAS's
+# batched kernels) or not, may sum in another order. The first loss: a
+# few float32 ulp of a sum over 256 frames and 96 features.
+ENSEMBLE_LOSS_TOL = 1e-6
+# The first step's gradients, per tensor as ENGINE_GRAD_TOL's: a tensor
+# whose gradient is a batch sum that cancels keeps the rounding against a
+# small norm (1.4e-5 in phase 13). A gradient of the wrong member or of
+# another batch is off by about 1.
+ENSEMBLE_GRAD_TOL = 1e-4
+# The weights after ENSEMBLE_COUNTED_STEPS steps: ENGINE_WEIGHT_TOL per
+# step (AdamW moves an element whose gradient is rounding noise by up to
+# lr either way).
+# (b) The bf16 flow against the float32 flow on the same weights, relative
+# to max(1, max|float32|): each product's operands are rounded to 8
+# significant bits (2^-9 relative), over three products per layer and six
+# layers; the JAX package's one-layer test allows 5% (tests/nn/flows/
+# test_maf.py).
+BF16_MAP_TOL = 0.1
+# The card's bf16 product against the exact rule (the float32 product of
+# the rounded operands) on the same inputs: forward, the same products
+# summed in another order (float32 order, relative to the scale); the
+# operand gradients, where the card also rounds the cotangent to bf16
+# (2^-9 relative per term) and both round the result once more: 2^-7 of
+# the scale.
+BF16_PRODUCT_TOL = 1e-5
+BF16_PRODUCT_GRAD_TOL = 2.0 ** -7
+
+
+def ensemble_loss(flow, x):
+    """``mean(0.5 |y|^2 - log_det_J)``: ensemble_bench's loss."""
+    from tfep_tpu_torch.loss import boltzmann_kl_div_loss
+    y, ldj = flow(x)
+    return boltzmann_kl_div_loss(0.5 * torch.sum(y * y, dim=-1), ldj)
+
+
+def folded_kernel_check(device):
+    """K1/K2 under ``vmap`` over ENSEMBLE_CHECKED members (one launch each
+    on the folded rows) against the plain version on the same rows."""
+    from tfep_tpu_torch.ops import spline as fs
+    k, b = ENSEMBLE_CHECKED, ENSEMBLE_BATCH
+    x, params, *bounds = spline_inputs(False, device, 5)
+    # Half the rows inside the domain, half outside, as phase 2's.
+    rows = torch.cat([torch.arange(k * b // 2),
+                      torch.arange(B - k * b // 2, B)]).to(device)
+    x, params = x[rows].reshape(k, b, F), params[rows].reshape(k, b, -1)
+    g = torch.Generator().manual_seed(6)
+    gy, gl = (torch.randn(k, b, F, generator=g).to(device) for _ in range(2))
+
+    def member(xx, pp):
+        return fs.fused_spline(xx, pp, *bounds, K)
+
+    before = (fs.LAUNCHES.forward, fs.LAUNCHES.backward)
+    outs, vjp = torch.func.vjp(torch.func.vmap(member), x, params)
+    grads = vjp((gy, gl))
+    launched = (fs.LAUNCHES.forward - before[0],
+                fs.LAUNCHES.backward - before[1])
+    xi = x.reshape(k * b, F).clone().requires_grad_()
+    pi = params.reshape(k * b, -1).clone().requires_grad_()
+    plain = fs.fused_spline_reference(xi, pi, *bounds, K)
+    plain_grads = torch.autograd.grad(plain, (xi, pi), (gy.reshape(k * b, F),
+                                                        gl.reshape(k * b, F)))
+    torch.cuda.synchronize()
+    errors = {}
+    for label, kern, ref, tol in (
+            ('y', outs[0], plain[0], FORWARD_TOL),
+            ('dl', outs[1], plain[1], FORWARD_TOL),
+            ('grad_x', grads[0], plain_grads[0], BACKWARD_TOL),
+            ('grad_params', grads[1], plain_grads[1], BACKWARD_TOL)):
+        err, rel = rel_err(kern.reshape(ref.shape), ref.detach())
+        say(f'  (a) folded K1/K2, {k} members x {b} rows, {label}: '
+            f'max|kernel-plain| = {err:.3e} (relative to scale {rel:.3e}, '
+            f'tolerance {tol:g})')
+        if not (torch.isfinite(kern).all() and rel <= tol):
+            raise AssertionError(f'(a) the folded {label} disagrees')
+        key = 'forward' if tol == FORWARD_TOL else 'backward'
+        errors[key] = max(errors.get(key, 0.0), err)
+    say(f'  (a) one vmapped call over {k} members launched K1/K2 '
+        f'{launched} times on ({k * b}, {F}) rows')
+    if launched != (1, 1):
+        raise AssertionError(f'(a) the folded call launched {launched}')
+    return errors
+
+
+def ensemble_phase(device, smi):
+    """Phase 14 (a): the ensemble step at ensemble_bench's configuration
+    for each K, the members at K = ENSEMBLE_CHECKED against the members
+    trained alone, and the folded kernels against their plain version."""
+    from tfep_tpu_torch.app.trainer import default_optimizer
+    from tfep_tpu_torch.nn.ensemble import (
+        ensemble_init, make_ensemble_train_step, stack_modules,
+        unstack_module,
+    )
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+
+    errors = folded_kernel_check(device)
+    members = [build_slice(device, seed=SEED + 1 + i,
+                           batch=ENSEMBLE_BATCH)[0]
+               for i in range(max(ENSEMBLE_MEMBERS))]
+    frames = torch.randn(ENSEMBLE_BATCH, F, generator=torch.Generator(
+        ).manual_seed(SEED + 100)).to(device)
+    n_params = sum(p.numel() for p in members[0].parameters())
+    say(f'  {max(ENSEMBLE_MEMBERS)} members of phase [3]\'s flow '
+        f'({n_params} parameters each), batch {ENSEMBLE_BATCH} shared, '
+        f'AdamW (lr 1e-4, decay 1e-4)')
+
+    # The members at K = ENSEMBLE_CHECKED against each member alone.
+    k = ENSEMBLE_CHECKED
+    stacked = stack_modules(members[:k])
+    stacked_grads = []
+    step = make_ensemble_train_step(ensemble_loss, ensemble_init(
+        recording(stacked_grads), stacked))
+    ens_losses = [step(stacked, frames) for _ in range(ENSEMBLE_COUNTED_STEPS)]
+    worst = dict(loss=0.0, grad=0.0, weights=0.0)
+    for i in range(k):
+        alone = copy.deepcopy(members[i])
+        alone_grads = []
+        optimizer = recording(alone_grads)(list(alone.parameters()))
+        first = None
+        for _ in range(ENSEMBLE_COUNTED_STEPS):
+            optimizer.zero_grad(set_to_none=True)
+            loss = ensemble_loss(alone, frames)
+            loss.backward()
+            optimizer.step()
+            first = float(loss.detach()) if first is None else first
+        ours = float(ens_losses[0][i])
+        worst['loss'] = max(worst['loss'],
+                            abs(ours - first) / max(1.0, abs(first)))
+        worst['grad'] = max(worst['grad'], grads_diff(
+            [g[i] for g in stacked_grads[0]], alone_grads[0]))
+        worst['weights'] = max(worst['weights'], weights_diff(
+            list(unstack_module(stacked, i).parameters()),
+            list(alone.parameters()))[0])
+        del alone, optimizer, alone_grads
+    weight_tol = ENSEMBLE_COUNTED_STEPS * ENGINE_WEIGHT_TOL
+    say(f'  (a) K={k}, each member against itself trained alone on the '
+        f'card: first loss {worst["loss"]:.3e} of scale (tolerance '
+        f'{ENSEMBLE_LOSS_TOL:g}); first step\'s gradients, largest '
+        f'|diff|/|g| per tensor {worst["grad"]:.3e} (tolerance '
+        f'{ENSEMBLE_GRAD_TOL:g}); weights after {ENSEMBLE_COUNTED_STEPS} '
+        f'steps max|diff| {worst["weights"]:.3e} (tolerance '
+        f'{weight_tol:g})')
+    if not (worst['loss'] <= ENSEMBLE_LOSS_TOL
+            and worst['grad'] <= ENSEMBLE_GRAD_TOL
+            and worst['weights'] <= weight_tol):
+        raise AssertionError('(a) an ensemble member differs from the '
+                             'member trained alone')
+    del stacked, step, stacked_grads
+    torch.cuda.empty_cache()
+
+    rows, launches = [], [0, 0]
+    for k in ENSEMBLE_MEMBERS:
+        stacked = stack_modules(members[:k])
+        step = make_ensemble_train_step(ensemble_loss, ensemble_init(
+            default_optimizer, stacked))
+
+        def run():
+            return step(stacked, frames)
+
+        # The main path, counted.
+        LAUNCHES.reset()
+        losses = [run() for _ in range(ENSEMBLE_COUNTED_STEPS)]
+        counted = (LAUNCHES.forward, LAUNCHES.backward)
+        launches[0] += counted[0]
+        launches[1] += counted[1]
+        per_step = (counted[0] / ENSEMBLE_COUNTED_STEPS,
+                    counted[1] / ENSEMBLE_COUNTED_STEPS)
+        if per_step != (N_LAYERS, N_LAYERS):
+            raise AssertionError(f'(a) K={k}: K1/K2 launched {counted} in '
+                                 f'{ENSEMBLE_COUNTED_STEPS} steps')
+        last = torch.stack(losses)
+        if not (last.shape == (ENSEMBLE_COUNTED_STEPS, k)
+                and torch.isfinite(last).all()):
+            raise AssertionError(f'(a) K={k}: losses {last}')
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(ENSEMBLE_TIMED_STEPS):
+            run()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / ENSEMBLE_TIMED_STEPS
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / ENSEMBLE_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        row = dict(members=k, step_ms=step_ms, host_enqueue_ms=host_ms,
+                   member_steps_per_s=k / step_ms * 1e3,
+                   peak_bytes=peak, launches_per_step=per_step,
+                   busy_ms=None)
+        if k in ENSEMBLE_PROFILED:
+            row['busy_ms'] = profile_phase(run, step_ms, smi, n=5,
+                                           batch=ENSEMBLE_BATCH)
+        rows.append(row)
+        say(f'  (a) K={k}: step {step_ms:.3f} ms (CUDA events over '
+            f'{ENSEMBLE_TIMED_STEPS} steps; host enqueue {host_ms:.3f} ms), '
+            f'{row["member_steps_per_s"]:.1f} member-steps/s '
+            f'({row["member_steps_per_s"] / rows[0]["member_steps_per_s"]:.2f}'
+            f'x K=1), peak memory {peak / 2**20:.1f} MiB, K1/K2 per step '
+            f'{per_step[0]:g}/{per_step[1]:g}; first losses '
+            f'{[round(float(v), 4) for v in losses[0][:4]]}; [{smi}]')
+        del stacked, step, losses
+        torch.cuda.empty_cache()
+    return dict(rows=rows, checks=worst, errors=errors,
+                launches=tuple(launches))
+
+
+def bf16_product_check(device, layer):
+    """The card's bf16 product (``low_precision_matmul`` on CUDA tensors)
+    against the exact rule run on the card, at one of the MAF's products:
+    the float32 product of the rounded operands, and each operand's
+    gradient the float32 product of the float32 cotangent with the other
+    rounded operand, rounded once to bf16."""
+    from tfep_tpu_torch.nn.masked import low_precision_matmul
+    g = torch.Generator().manual_seed(7)
+    w = layer.effective_weight().detach()
+    x = torch.randn(B, w.shape[1], generator=g).to(device)
+    gy = torch.randn(B, w.shape[0], generator=g).to(device)
+    xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = low_precision_matmul(xi, wi, 'bfloat16')
+    gx, gw = torch.autograd.grad(y, (xi, wi), gy)
+    bf = torch.bfloat16
+    xr, wr = x.to(bf).float(), w.to(bf).float()
+    errors = {}
+    for label, card, exact, tol in (
+            ('y', y, xr @ wr.T, BF16_PRODUCT_TOL),
+            ('grad_x', gx, (gy @ wr).to(bf).float(), BF16_PRODUCT_GRAD_TOL),
+            ('grad_w', gw, (gy.T @ xr).to(bf).float(),
+             BF16_PRODUCT_GRAD_TOL)):
+        err, rel = rel_err(card.detach(), exact)
+        errors['product_' + label] = rel
+        say(f'  (b) bf16 product ({B}x{w.shape[1]} @ {w.shape[1]}x'
+            f'{w.shape[0]}) on the card against the exact rule, {label}: '
+            f'max|diff| = {err:.3e} (relative to scale {rel:.3e}, '
+            f'tolerance {tol:g})')
+        if not rel <= tol:
+            raise AssertionError(f'(b) the bf16 product\'s {label} '
+                                 'disagrees')
+    return errors
+
+
+def bf16_phase(device, smi, handoff):
+    """Phase 14 (b): phase 3's MAF with compute_dtype='bfloat16' on phase
+    3's weights, against the float32 flow; then cnf_bench's EGNN field on
+    the dense path. ``handoff`` holds phase [3]'s float32 step, busy time
+    and profile."""
+    from tfep_tpu_torch.app.trainer import default_optimizer
+    from tfep_tpu_torch.nn.dynamics import EGNNDynamics
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+
+    flow32, frames = build_slice(device)
+    flow, _ = build_slice(device, compute_dtype='bfloat16')
+    flow.load_state_dict(flow32.state_dict())
+    with torch.no_grad():
+        y32, ldj32 = flow32(frames)
+        y16, ldj16 = flow(frames)
+    loss32 = float(torch.mean(0.5 * torch.sum(y32 * y32, dim=-1) - ldj32))
+    loss16 = float(torch.mean(0.5 * torch.sum(y16 * y16, dim=-1) - ldj16))
+    del flow32
+    errors = {}
+    for label, a, b in (('y', y16, y32), ('log_det_J', ldj16, ldj32)):
+        err, errors[label] = rel_err(a, b)
+        say(f'  (b) bf16 flow against float32, {label}: max|diff| = '
+            f'{err:.3e} (relative to scale {errors[label]:.3e}, tolerance '
+            f'{BF16_MAP_TOL:g})')
+    errors['loss'] = abs(loss16 - loss32) / max(1.0, abs(loss32))
+    say(f'  (b) loss {loss16:.6f} against float32 {loss32:.6f}: '
+        f'{errors["loss"]:.3e} of scale (tolerance {BF16_MAP_TOL:g})')
+    if not (y16.dtype == torch.float32 and all(
+            v <= BF16_MAP_TOL for v in errors.values())):
+        raise AssertionError('(b) the bf16 flow is off the float32 flow')
+
+    optimizer = default_optimizer(list(flow.parameters()))
+
+    def train_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = ensemble_loss(flow, frames)
+        loss.backward()
+        optimizer.step()
+        return loss
+
+    # The main path, counted.
+    LAUNCHES.reset()
+    losses = [float(train_step().detach()) for _ in range(N_STEPS)]
+    launches = (LAUNCHES.forward, LAUNCHES.backward)
+    say(f'  (b) {N_STEPS} bf16 training steps, loss {losses}; K1/K2 '
+        f'launches {launches}')
+    if launches != (N_STEPS * N_LAYERS, N_STEPS * N_LAYERS) or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f'(b) K1/K2 launched {launches}, losses '
+                             f'{losses}')
+    round_trip(flow, frames, '(b) bf16 round trip')
+    times = step_times(flow, frames, train_step, smi)
+    kinds = {}
+    busy = profile_phase(train_step, times['step_ms'], smi, kinds_out=kinds)
+    cublas = 'matrix products (cuBLAS)'
+    ref_kinds = handoff['kinds']
+    say(f'  (b) bf16 against float32 (phase [3], same run): step '
+        f'{times["step_ms"]:.3f} / {handoff["step_ms"]:.3f} ms; device busy '
+        f'{busy:.3f} / {handoff["busy_ms"]:.3f} ms; cuBLAS '
+        f'{kinds.get(cublas, (0, 0.0))[1]:.3f} ms in '
+        f'{kinds.get(cublas, (0, 0.0))[0]:.0f} kernels / '
+        f'{ref_kinds.get(cublas, (0, 0.0))[1]:.3f} ms in '
+        f'{ref_kinds.get(cublas, (0, 0.0))[0]:.0f} kernels; [{smi}]')
+    errors.update(bf16_product_check(
+        device, flow[0].conditioner.layers[1]))
+    del flow, optimizer, train_step
+    torch.cuda.empty_cache()
+
+    # cnf_bench's field on the dense path, without grad.
+    fields = {}
+    for name, compute_dtype in (('float32', None), ('bfloat16', 'bfloat16')):
+        dynamics = EGNNDynamics.create(
+            torch.Generator().manual_seed(SEED), node_types=np.arange(
+                N_ATOMS) % 4, r_cutoff=R_CUTOFF, time_feat_dim=16,
+            node_feat_dim=CNF_FEAT, distance_feat_dim=CNF_FEAT,
+            n_layers=CNF_LAYERS, initialize_identity=False, device=device,
+            compute_dtype=compute_dtype)
+        if name == 'bfloat16':
+            dynamics.load_state_dict(state)
+        state = dynamics.state_dict()
+        x = 0.5 * torch.randn(CNF_BATCH, 3 * N_ATOMS, generator=torch.
+                              Generator().manual_seed(SEED + 1)).to(device)
+        with torch.no_grad():
+            fields[name] = dynamics(0.5, x)
+    err, errors['egnn_field'] = rel_err(fields['bfloat16'], fields['float32'])
+    say(f'  (b) cnf_bench\'s EGNN field (dense, batch {CNF_BATCH}, no grad), '
+        f'bf16 against float32: max|diff| = {err:.3e} (relative to scale '
+        f'{errors["egnn_field"]:.3e}, tolerance {BF16_MAP_TOL:g})')
+    if not errors['egnn_field'] <= BF16_MAP_TOL:
+        raise AssertionError('(b) the bf16 EGNN field is off float32\'s')
+    return dict(times, busy_ms=busy, kinds=kinds, errors=errors,
+                launches=launches, losses=losses)
+
+
 def main():
     import threading
 
@@ -3114,7 +3488,10 @@ def main():
 
     say('[4] times')
     rows, step = timing_phase(device, flow, frames, train_step, smi)
-    profile_phase(train_step, step['step_ms'], smi)
+    # Phase 14 sets its bf16 step beside this float32 one.
+    maf_handoff = dict(step_ms=step['step_ms'], kinds={})
+    maf_handoff['busy_ms'] = profile_phase(train_step, step['step_ms'], smi,
+                                           kinds_out=maf_handoff['kinds'])
     del flow, frames, train_step
     torch.cuda.empty_cache()
 
@@ -3185,6 +3562,13 @@ def main():
         'engine through the autograd bridge, plainly and with '
         'engine_overlap=True')
     engine = engine_phase(device, smi, engine_handoff)
+    torch.cuda.empty_cache()
+
+    say('[14] ensembles and bf16 products: ensemble_bench\'s configuration '
+        'trained as K vmapped members, K1/K2 on the folded rows; phase '
+        '[3]\'s MAF with compute_dtype=\'bfloat16\'')
+    ensemble = ensemble_phase(device, smi)
+    bf16 = bf16_phase(device, smi, maf_handoff)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -3207,9 +3591,12 @@ def main():
                 'mixed_map': mixed['launches'][i],
                 'file_map': file_map['launches'][i],
                 'engine_map': engine['launches'][i],
-                'engine_map_pipelined': engine['pipelined_launches'][i]},
+                'engine_map_pipelined': engine['pipelined_launches'][i],
+                'ensemble': ensemble['launches'][i],
+                'maf_bf16': bf16['launches'][i]},
             'max_abs_err': max(errors[which], cart['errors'][which],
-                               mixed['errors'][which]),
+                               mixed['errors'][which],
+                               ensemble['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': None})
@@ -3254,6 +3641,9 @@ def main():
                     'files': file_map['files'],
                     'analysis': file_map['analysis'],
                     'engine': engine,
+                    'ensemble': {k: v for k, v in ensemble.items()
+                                 if k != 'errors'},
+                    'maf_bf16': bf16,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

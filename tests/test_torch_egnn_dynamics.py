@@ -159,9 +159,14 @@ def test_fused_plain_call_has_no_gradient():
 
 
 def test_options_not_ported_or_unknown_raise():
-    with pytest.raises(NotImplementedError):
+    # compute_dtype is ported for the dense path; the fused kernels run in
+    # the storage dtype and refuse it, as JAX's 'pallas' path does.
+    with pytest.raises(ValueError, match='compute_dtype'):
         EGNNDynamics.create(torch_generator(0), [0, 1], 3.0, device=CPU,
-                            compute_dtype='bfloat16')
+                            pairwise='fused', compute_dtype='bfloat16')
+    dense = EGNNDynamics.create(torch_generator(0), [0, 1], 3.0, device=CPU,
+                                compute_dtype='bfloat16')
+    assert dense(0.5, torch.ones(2, 6)).dtype == torch.float32
     with pytest.raises(ValueError, match='pairwise'):
         EGNNDynamics.create(torch_generator(0), [0, 1], 3.0, device=CPU,
                             pairwise='pallas')

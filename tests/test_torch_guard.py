@@ -159,9 +159,13 @@ def test_explicit_cpu_device_map(no_card):
 
 
 def test_compute_dtype_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        MaskedLinear(torch.Generator(), 3, 4, device='cpu',
-                     compute_dtype='bfloat16')
+    """``compute_dtype`` is ported: the layer builds, keeps its weights in
+    the storage dtype and returns it."""
+    layer = MaskedLinear(torch.Generator(), 3, 4, device='cpu',
+                         compute_dtype='bfloat16')
+    assert layer.compute_dtype is torch.bfloat16
+    assert layer.weight.dtype == torch.float32
+    assert layer(torch.ones(2, 3)).dtype == torch.float32
 
 
 # --------------------------------------------------------------------------

@@ -85,7 +85,8 @@ class ContinuousEGNNMap(TFEPMapBase):
     egnn_kwargs : dict, optional
         Extra arguments for
         :meth:`tfep_tpu_torch.nn.dynamics.EGNNDynamics.create` (e.g.
-        ``speed_factor``, ``pairwise='pallas'``, which runs the kernels).
+        ``speed_factor``, ``compute_dtype='bfloat16'``,
+        ``pairwise='pallas'``, which runs the kernels).
     cnf_kwargs : dict, optional
         Extra arguments for
         :meth:`tfep_tpu_torch.nn.flows.ContinuousFlow.create` (e.g.

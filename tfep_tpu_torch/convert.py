@@ -6,6 +6,8 @@ as ``jax.tree_util.keystr`` prints them (``.flows[0].conditioner.layers[2]
 place of tuples, so each key path names one parameter or buffer of the
 port (``flows.0.conditioner.layers.2.gain``). The caller flattens the JAX
 module into ``{key path: numpy array}``; this module never touches JAX.
+A stacked ensemble (the JAX package's ``stack_modules``) loads member by
+member into the port's stacked module (:func:`load_jax_ensemble_state`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ['torch_name', 'load_jax_state']
+from tfep_tpu_torch.nn.ensemble import n_members, stack_modules, unstack_module
+
+__all__ = ['torch_name', 'load_jax_state', 'load_jax_ensemble_state']
 
 
 def torch_name(key_path: str) -> str:
@@ -69,3 +73,36 @@ def load_jax_state(module: nn.Module,
             raise ValueError(f'{key}: {target.dtype} structure differs '
                              f'from the port\'s.')
     return module
+
+
+@torch.no_grad()
+def load_jax_ensemble_state(stacked: nn.Module,
+                            state: Mapping[str, np.ndarray]) -> nn.Module:
+    """Load a JAX stacked ensemble's ``{key path: array}`` into the port's
+    stacked module (:func:`tfep_tpu_torch.nn.ensemble.stack_modules`) in
+    place.
+
+    The leaves that are parameters of the port carry the leading member
+    axis K; the buffers are shared. Each member is taken out with
+    ``unstack_module``, loaded with :func:`load_jax_state` (which raises on
+    any missing or extra key) and the members are stacked back.
+    """
+    k = n_members(stacked)
+    stacked_names = {name for name, _ in stacked.named_parameters()}
+    members = []
+    for member in range(k):
+        member_state = {}
+        for key, value in state.items():
+            value = np.asarray(value)
+            if torch_name(key) in stacked_names:
+                if value.shape[:1] != (k,):
+                    raise ValueError(f'{key}: shape {value.shape} has no '
+                                     f'leading member axis of {k}.')
+                value = value[member]
+            member_state[key] = value
+        members.append(load_jax_state(unstack_module(stacked, member),
+                                      member_state))
+    for target, value in zip(stacked.parameters(),
+                             stack_modules(members).parameters()):
+        target.copy_(value)
+    return stacked

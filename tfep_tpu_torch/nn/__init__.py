@@ -13,11 +13,21 @@ from tfep_tpu_torch.nn.embeddings import (  # noqa: F401
     GaussianBasisExpansion, MAFEmbedding, MixedEmbedding, PeriodicEmbedding,
 )
 from tfep_tpu_torch.nn.transformers import (  # noqa: F401
-    AffineTransformer, MAFTransformer, MixedTransformer,
-    NeuralSplineTransformer, Transformer,
+    AffineTransformer, MAFTransformer, MixedTransformer, MoebiusTransformer,
+    NeuralSplineTransformer, QuaternionProductTransformer,
+    SOSPolynomialTransformer, SymmetrizedMoebiusTransformer, Transformer,
     VolumePreservingShiftTransformer, affine_transformer,
-    affine_transformer_inverse, neural_spline_transformer,
-    neural_spline_transformer_inverse, volume_preserving_shift_transformer,
+    affine_transformer_inverse, moebius_transformer,
+    neural_spline_transformer, neural_spline_transformer_inverse,
+    sos_polynomial_transformer, sos_polynomial_transformer_inverse,
+    symmetrized_moebius_transformer,
+    symmetrized_moebius_transformer_inverse,
+    volume_preserving_shift_transformer,
     volume_preserving_shift_transformer_inverse,
 )
 from tfep_tpu_torch.nn.conditioners import MADE, Conditioner, generate_degrees  # noqa: F401
+from tfep_tpu_torch.nn import ensemble  # noqa: F401
+from tfep_tpu_torch.nn.ensemble import (  # noqa: F401
+    ensemble_init, ensemble_map, make_ensemble_train_step, n_members,
+    stack_modules, unstack_module,
+)

@@ -29,7 +29,7 @@ from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.nn.embeddings.radial import (
     BehlerParrinelloRadialExpansion, GaussianBasisExpansion,
 )
-from tfep_tpu_torch.nn.masked import MaskedLinear
+from tfep_tpu_torch.nn.masked import MaskedLinear, low_precision_matmul
 from tfep_tpu_torch.ops.egnn import egnn_pairwise, egnn_pairwise_jvp
 
 __all__ = ['EGNNDynamics']
@@ -41,13 +41,15 @@ class _MLP(nn.Module):
     """Small dense MLP with SiLU activations (optionally on the output)."""
 
     def __init__(self, generator, dims, final_activation='none',
-                 bias_last=True, device=None, dtype=torch.float32):
+                 bias_last=True, device=None, dtype=torch.float32,
+                 compute_dtype=None):
         super().__init__()
         n_layers = len(dims) - 1
         self.layers = nn.ModuleList(
             MaskedLinear(generator, d_in, d_out,
                          bias=bias_last if i == n_layers - 1 else True,
-                         device=device, dtype=dtype)
+                         device=device, dtype=dtype,
+                         compute_dtype=compute_dtype)
             for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])))
         self.final_activation = final_activation
 
@@ -84,14 +86,19 @@ class _EGLayer(nn.Module):
 
     def __init__(self, generator, r_cutoff, node_feat_dim, distance_feat_dim,
                  speed_factor, initialize_identity=True, device=None,
-                 dtype=torch.float32, pairwise='dense'):
+                 dtype=torch.float32, pairwise='dense', compute_dtype=None):
         super().__init__()
+        if pairwise == 'fused' and compute_dtype is not None:
+            raise ValueError(
+                "pairwise='fused' does not support compute_dtype: the fused "
+                'kernels run in the storage dtype. Drop one of the two '
+                'options.')
         F = node_feat_dim
         self.distance_embedding = BehlerParrinelloRadialExpansion.from_range(
             r_cutoff=r_cutoff, n_gaussians=distance_feat_dim,
             max_mean=r_cutoff, trainable_stds=True, device=device,
             dtype=dtype)
-        kwargs = dict(device=device, dtype=dtype)
+        kwargs = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.message_mlp = _MLP(generator, [2 * F + distance_feat_dim, F, F],
                                 final_activation='silu', **kwargs)
         self.attention_mlp = _MLP(generator, [F, 1],
@@ -139,8 +146,10 @@ class _EGLayer(nn.Module):
         # Factored first layer: (W_i h_i) + (W_j h_j) + W_e emb, instead of
         # a per-pair product over the (b, n, n, 2 feat + dfeat) concatenation.
         dist_emb = self.distance_embedding(safe_dist)
-        pre = ((h @ w_i.T)[:, :, None, :] + (h @ w_j.T)[:, None, :, :]
-               + dist_emb @ w_e.T)
+        cd = self.message_mlp.layers[0].compute_dtype
+        pre = (low_precision_matmul(h, w_i, cd)[:, :, None, :]
+               + low_precision_matmul(h, w_j, cd)[:, None, :, :]
+               + low_precision_matmul(dist_emb, w_e, cd))
         bias = self.message_mlp.layers[0].bias
         if bias is not None:
             pre = pre + bias
@@ -198,8 +207,10 @@ class EGNNDynamics(nn.Module):
 
     - ``pairwise`` — ``'dense'`` (default) or ``'fused'`` (kernels K3-K5);
     - ``device`` — defaults to ``cuda`` and raises without a card;
-    - ``compute_dtype`` — the JAX package's bf16 matmul policy; not
-      ported (raises ``NotImplementedError``).
+    - ``compute_dtype`` — e.g. ``'bfloat16'``: the message and update
+      products on operands rounded to it with a float32 sum, the
+      parameters in ``dtype`` (:func:`~tfep_tpu_torch.nn.masked.
+      low_precision_matmul`); only with ``pairwise='dense'``, as in JAX.
     """
 
     def __init__(self, one_hot, time_embedding, h_embedding, graph_layers):
@@ -221,9 +232,6 @@ class EGNNDynamics(nn.Module):
         if pairwise not in _PAIRWISE:
             raise ValueError(f'pairwise must be one of {_PAIRWISE}, got '
                              f'{pairwise!r}.')
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                'compute_dtype (mixed-precision matmuls) is not ported yet.')
         device = resolve_device(device)
         node_types = np.asarray(node_types)
         n_types = int(node_types.max()) + 1
@@ -232,7 +240,8 @@ class EGNNDynamics(nn.Module):
         layers = [_EGLayer(generator, r_cutoff, node_feat_dim,
                            distance_feat_dim, speed_factor,
                            initialize_identity, device=device, dtype=dtype,
-                           pairwise=pairwise) for _ in range(n_layers)]
+                           pairwise=pairwise, compute_dtype=compute_dtype)
+                  for _ in range(n_layers)]
         return cls(
             one_hot,
             GaussianBasisExpansion.from_range(

@@ -60,9 +60,11 @@ class MAF(AutoregressiveFlow):
             Defaults to ``cuda``; raises without a card.
         dtype : torch.dtype, optional
             Parameter type.
-        compute_dtype : optional
-            The JAX package's mixed-precision matmul policy; not ported
-            (raises ``NotImplementedError``).
+        compute_dtype : str or torch.dtype, optional
+            The conditioner's products on operands rounded to this type
+            (``'bfloat16'``) with a float32 sum; the parameters, the
+            transformer and the outputs stay in ``dtype``
+            (:class:`~tfep_tpu_torch.nn.masked.MaskedLinear`).
         """
         device = resolve_device(device)
         if transformer is None:

@@ -4,6 +4,8 @@ Port of ``tfep_tpu/nn/masked.py``. The mask is folded into the weight at
 apply time (``W_eff = where(mask, W, 0)``), so autograd masks the gradient
 with no custom Function. Weight normalization runs over the masked weight,
 with a zero-norm guard that keeps fully masked rows finite under autograd.
+With ``compute_dtype`` the product runs on operands rounded to that type
+(bfloat16) and sums in float32 (:func:`low_precision_matmul`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from torch import nn
 
 from tfep_tpu_torch.device import resolve_device
 
-__all__ = ['create_autoregressive_mask', 'MaskedLinear']
+__all__ = ['create_autoregressive_mask', 'MaskedLinear',
+           'low_precision_matmul']
 
 
 def create_autoregressive_mask(
@@ -57,6 +60,97 @@ def create_autoregressive_mask(
     return cmp(degrees_out[None, :], degrees_in[:, None])
 
 
+def _product(a, b, compute_dtype):
+    """``a @ b`` in float32, ``b`` already in ``compute_dtype``. On the card
+    cuBLAS multiplies ``compute_dtype`` operands into a float32 result, so
+    ``a`` is rounded to ``compute_dtype`` too; on the CPU ``a`` is taken as
+    it is, as JAX's float32 product with a rounded operand does."""
+    if a.device.type == 'cuda':
+        shape = a.shape[:-1]
+        a = a.reshape(-1, a.shape[-1]).to(compute_dtype)
+        return torch.mm(a, b, out_dtype=torch.float32).reshape(
+            *shape, b.shape[-1])
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """``x @ w.T`` on operands rounded to ``compute_dtype``, summed in
+    float32 and returned in ``x``'s dtype: the JAX package's
+    ``dot_general(x.astype(cd), w.astype(cd).T,
+    preferred_element_type=float32).astype(x.dtype)``.
+
+    Gradients follow JAX's transpose of that product: each operand's
+    cotangent is the float32 product of the float32 cotangent with the
+    other rounded operand, rounded once to ``compute_dtype``; tangents
+    (``jvp``) are rounded like the operands. On a CPU tensor that is what
+    runs. On a CUDA tensor the products are cuBLAS's on ``compute_dtype``
+    operands with a float32 result (``torch.mm(..., out_dtype=float32)``,
+    the card's tensor cores), so the cotangent is rounded to
+    ``compute_dtype`` before its product, as a TPU's matrix unit does,
+    where JAX on the CPU keeps it in float32. Second derivatives are
+    autograd's of these products and round as JAX's do only to first
+    order.
+    """
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, compute_dtype):
+        return _product(x.to(compute_dtype), w.to(compute_dtype).T,
+                        compute_dtype).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, compute_dtype = inputs
+        ctx.save_for_backward(x, w)
+        ctx.save_for_forward(x, w)
+        ctx.compute_dtype = compute_dtype
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        g = g.to(torch.float32)
+        gx = _product(g, w.to(cd), cd).to(cd).to(x.dtype)
+        gw = _product(g.reshape(-1, g.shape[-1]).T,
+                      x.reshape(-1, x.shape[-1]).to(cd), cd)
+        return gx, gw.to(cd).to(w.dtype), None
+
+    @staticmethod
+    def jvp(ctx, dx, dw, _):
+        x, w = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        out = 0.0
+        if dx is not None:
+            out = out + _product(dx.to(cd), w.to(cd).T, cd)
+        if dw is not None:
+            out = out + _product(x.to(cd), dw.to(cd).T, cd)
+        return out.to(x.dtype)
+
+
+def low_precision_matmul(x, w, compute_dtype):
+    """``x @ w.T`` over the last axis. With a ``compute_dtype`` (e.g.
+    ``torch.bfloat16`` or ``'bfloat16'``) both operands are rounded to it
+    and summed in float32, the result returned in ``x``'s dtype
+    (:class:`_LowPrecisionMatmul`); with ``None`` it is the plain
+    product."""
+    if compute_dtype is None:
+        return x @ w.T
+    return _LowPrecisionMatmul.apply(x, w, resolve_compute_dtype(
+        compute_dtype))
+
+
+def resolve_compute_dtype(compute_dtype):
+    """``None``, or the torch dtype a name such as ``'bfloat16'`` (the JAX
+    package's spelling) or a ``torch.dtype`` stands for."""
+    if compute_dtype is None or isinstance(compute_dtype, torch.dtype):
+        return compute_dtype
+    dtype = getattr(torch, str(compute_dtype), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f'Unknown compute_dtype {compute_dtype!r}.')
+    return dtype
+
+
 class MaskedLinear(nn.Module):
     """Masked dense layer ``y = x @ (M o W)^T + b``, with optional weight norm.
 
@@ -83,8 +177,10 @@ class MaskedLinear(nn.Module):
     device : str or torch.device, optional
         Defaults to ``cuda``; raises without a card.
     dtype : torch.dtype, optional
-    compute_dtype : optional
-        The JAX package's bf16 matmul policy; not ported (raises).
+    compute_dtype : str or torch.dtype, optional
+        Run the product on operands rounded to this type (``'bfloat16'``)
+        with a float32 sum (:func:`low_precision_matmul`). The weights, the
+        mask, the weight norm and the bias stay in ``dtype``.
     degrees_in, degrees_out : ndarray of int, optional
     strictly_less : bool, optional
     """
@@ -98,9 +194,6 @@ class MaskedLinear(nn.Module):
                  degrees_out: Optional[np.ndarray] = None,
                  strictly_less: bool = False):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                'compute_dtype (mixed-precision matmuls) is not ported yet.')
         if mask is not None and degrees_in is not None:
             raise ValueError('Pass either mask or degrees_in/degrees_out, '
                              'not both.')
@@ -117,6 +210,7 @@ class MaskedLinear(nn.Module):
         self.weight = nn.Parameter(uniform(out_features, in_features))
         self.bias = nn.Parameter(uniform(out_features)) if bias else None
         self.strictly_less = bool(strictly_less)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.use_weight_norm = bool(weight_norm)
         self.register_buffer('mask', None if mask is None else torch.as_tensor(
             np.asarray(mask, dtype=bool), device=device))
@@ -170,7 +264,8 @@ class MaskedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """``x @ W_eff^T + b``, for all output rows or only ``rows``."""
-        y = x @ self.effective_weight(rows).T
+        y = low_precision_matmul(x, self.effective_weight(rows),
+                                 self.compute_dtype)
         if self.bias is not None:
             y = y + (self.bias if rows is None else self.bias[rows])
         return y

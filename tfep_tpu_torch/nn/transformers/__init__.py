@@ -11,4 +11,14 @@ from tfep_tpu_torch.nn.transformers.spline import (  # noqa: F401
     NeuralSplineTransformer, neural_spline_transformer,
     neural_spline_transformer_inverse,
 )
+from tfep_tpu_torch.nn.transformers.sos import (  # noqa: F401
+    SOSPolynomialTransformer, sos_polynomial_transformer,
+    sos_polynomial_transformer_inverse,
+)
+from tfep_tpu_torch.nn.transformers.moebius import (  # noqa: F401
+    MoebiusTransformer, SymmetrizedMoebiusTransformer,
+    moebius_transformer, symmetrized_moebius_transformer,
+    symmetrized_moebius_transformer_inverse,
+)
+from tfep_tpu_torch.nn.transformers.quatprod import QuaternionProductTransformer  # noqa: F401
 from tfep_tpu_torch.nn.transformers.mixed import MixedTransformer  # noqa: F401

@@ -552,23 +552,102 @@ def _backward_launch(x, params, bounds, consts, gy, gl, gx, gp, n_bins,
 
 
 class _FusedSpline(torch.autograd.Function):
-    """K1 forward, K2 backward; the four bounds get no gradient."""
+    """K1 forward, K2 backward; the four bounds get no gradient.
+
+    In the ``forward`` + ``setup_context`` form, so it composes with
+    ``torch.func``. Under ``vmap`` (an ensemble of flows, one member per
+    slice of the mapped axis) the members' rows are folded into one
+    batch: K1 and K2 work row by row with per-feature bounds, so one
+    launch serves every member, and the backward runs on the folded rows
+    too (:class:`_SplineBackward`).
+    """
 
     @staticmethod
-    def forward(ctx, x, params, x0, xf, y0, yf, n_bins, min_bin_size,
-                min_slope):
-        ctx.save_for_backward(x, params, x0, xf, y0, yf)
-        ctx.config = (n_bins, min_bin_size, min_slope)
+    def forward(x, params, x0, xf, y0, yf, n_bins, min_bin_size, min_slope):
         return launch_forward(x, params, x0, xf, y0, yf, n_bins,
                               min_bin_size, min_slope)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, params, x0, xf, y0, yf, *config = inputs
+        ctx.save_for_backward(x, params, x0, xf, y0, yf)
+        ctx.config = tuple(config)
+
+    @staticmethod
     def backward(ctx, gy, gl):
-        x, params, x0, xf, y0, yf = ctx.saved_tensors
-        gx, gp = launch_backward(x, params, x0, xf, y0, yf,
-                                 gy.contiguous(), gl.contiguous(),
-                                 *ctx.config)
+        gx, gp = _SplineBackward.apply(*ctx.saved_tensors, gy, gl,
+                                       *ctx.config)
         return gx, gp, None, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, params, x0, xf, y0, yf, *config):
+        _shared_bounds(in_dims[2:6])
+        n = info.batch_size
+        x, params = (_fold(t, d, n) for t, d in zip((x, params), in_dims))
+        _check_offsets(params)
+        y, dl = _FusedSpline.apply(x, params, x0, xf, y0, yf, *config)
+        return (_unfold(y, n), _unfold(dl, n)), (0, 0)
+
+
+class _SplineBackward(torch.autograd.Function):
+    """K2: ``(grad_x, grad_params)`` for the cotangents ``gy``, ``gl``.
+
+    A Function of its own so that, under ``vmap``, K2 too runs once on
+    the folded rows. It has no derivative: differentiating the spline
+    twice raises.
+    """
+
+    @staticmethod
+    def forward(x, params, x0, xf, y0, yf, gy, gl, n_bins, min_bin_size,
+                min_slope):
+        return launch_backward(x, params, x0, xf, y0, yf, gy.contiguous(),
+                               gl.contiguous(), n_bins, min_bin_size,
+                               min_slope)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ggx, ggp):
+        raise RuntimeError('The fused spline (K1/K2) has no second '
+                           'derivative.')
+
+    @staticmethod
+    def vmap(info, in_dims, x, params, x0, xf, y0, yf, gy, gl, *config):
+        _shared_bounds(in_dims[2:6])
+        n = info.batch_size
+        x, params, gy, gl = (
+            _fold(t, d, n) for t, d in zip((x, params, gy, gl),
+                                           in_dims[:2] + in_dims[6:8]))
+        _check_offsets(params)
+        gx, gp = _SplineBackward.apply(x, params, x0, xf, y0, yf, gy, gl,
+                                       *config)
+        return (_unfold(gx, n), _unfold(gp, n)), (0, 0)
+
+
+def _shared_bounds(bound_dims):
+    if any(d is not None for d in bound_dims):
+        raise ValueError('Under vmap the spline bounds x0, xf, y0, yf must '
+                         'be shared by every member (a buffer), not '
+                         'mapped.')
+
+
+def _fold(t, dim, n):
+    """``(n, B, ...)`` with the mapped axis at ``dim`` (``None``: shared,
+    broadcast to every member) as one contiguous ``(n * B, ...)``."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t, n):
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+def _check_offsets(params):
+    if params.numel() >= 2 ** 31:
+        raise ValueError('params is too large for the kernels\' 32-bit '
+                         'offsets.')
 
 
 def _check(x, params, bounds, n_bins):
@@ -583,9 +662,7 @@ def _check(x, params, bounds, n_bins):
         raise ValueError(
             f'params must have shape {(B, (3 * n_bins + 1) * F)} for '
             f'n_bins={n_bins}, got {tuple(params.shape)}.')
-    if params.numel() >= 2 ** 31:
-        raise ValueError('params is too large for the kernels\' 32-bit '
-                         'offsets.')
+    _check_offsets(params)
     for name, t in (('params', params),) + tuple(bounds.items()):
         if t.dtype != x.dtype or t.device != x.device:
             raise TypeError(f'{name} must match x in dtype and device '
@@ -607,6 +684,8 @@ def fused_spline(x, params, x0, xf, y0, yf, n_bins: int,
     Differentiable with respect to ``x`` and ``params``. On a CUDA tensor it
     launches the Triton kernels (K1 forward, K2 backward); on a CPU tensor
     it runs :func:`fused_spline_reference`. Any other device raises.
+    Both compose with ``torch.func`` (``grad``, ``vmap``); under ``vmap``
+    the kernels run once on the members' rows folded into one batch.
 
     Parameters
     ----------
