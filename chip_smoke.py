@@ -144,6 +144,26 @@ Phases, each of which passes or exits non-zero:
    ``cnf_bench``'s EGNN field on the dense path with bf16 products against
    float32, without grad.
 
+15. Multi-process training (``parallel/{distributed,sharding}``). (a) One
+   rank over NCCL at phase 9's configuration (``CartesianMAFMap``, 90
+   features, batch 4096, no logger; weights from the seed): 3 steps of
+   ``Trainer(sharding=batch_sharding(make_mesh()))`` against the
+   unsharded fit from the same weights, K1/K2 at 6/6 per step, the
+   sharded and unsharded step times and the all-reduce's device time
+   (profiler). (b) Two ranks that the script spawns on the one card,
+   over gloo (NCCL refuses two ranks on one device): (i) data
+   parallelism at 2048 rows per rank, 3 steps against one process at
+   4096 on the same global batches (losses, first gradients, weights);
+   (ii) ``shard_module`` with tp = 2 on phase 3's MAF (MADE 96 → 478 →
+   478 → 2400), its forward, gradients and one AdamW step against the
+   replicated flow, each rank's weight shapes; (iii) ``shard_ensemble``
+   of 4 members of ``ensemble_bench``'s configuration over the 2 ranks, 3
+   steps against the unsharded ensemble. (c) ``cnf_bench``'s EGNN field,
+   ``pairwise='fused'``, as 2 stacked members: ``forward_and_jvp`` under
+   ``ensemble_map`` and its gradient through ``make_ensemble_train_step``
+   against each field alone and the plain (dense) version, with the
+   K3/K4/K5 launches (one per member and layer).
+
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -1380,25 +1400,31 @@ def app_orders(seed, n_epochs):
     return steps
 
 
-def app_system():
-    """Phase 9's System: APP_FRAMES Cartesian frames of the 32-atom
-    molecule in its 4-atom shell."""
+def app_topology():
+    """The 32-atom molecule in its 4-atom shell."""
     from tfep_tpu_torch.io.topology import Topology
-    from tfep_tpu_torch.io.traj import System
 
     n_mol = CART_ATOMS - CART_SOLVENT
-    topology = Topology(
+    return Topology(
         names=[f'C{i}' for i in range(n_mol)] + ['OW'] * CART_SOLVENT,
         resnames=['MOL'] * n_mol + ['SOL'] * CART_SOLVENT,
         resids=[1] * n_mol + list(range(2, 2 + CART_SOLVENT)))
-    return System(topology, cartesian_frames(APP_FRAMES).reshape(
+
+
+def app_system():
+    """Phase 9's System: APP_FRAMES Cartesian frames of the 32-atom
+    molecule in its 4-atom shell."""
+    from tfep_tpu_torch.io.traj import System
+
+    return System(app_topology(), cartesian_frames(APP_FRAMES).reshape(
         -1, CART_ATOMS, 3))
 
 
-def app_map(device, system, potential, logs, state=None):
+def app_map(device, system, potential, logs, state=None, batch=None):
     """Phase 9's CartesianMAFMap on ``system`` with ``potential``, set up,
     with phase 8's weights ``state`` where given; ``logs`` is the
-    logger's directory (None: no logger)."""
+    logger's directory (None: no logger); ``batch`` rows per step (B by
+    default)."""
     from tfep_tpu_torch.app import CartesianMAFMap
     from tfep_tpu_torch.nn.transformers import NeuralSplineTransformer
     from tfep_tpu_torch.units import ureg
@@ -1409,7 +1435,8 @@ def app_map(device, system, potential, logs, state=None):
                                      device=device)
     tfep_map = CartesianMAFMap(
         potential_energy_func=potential,
-        temperature=300.0 * ureg.kelvin, system=system, batch_size=B,
+        temperature=300.0 * ureg.kelvin, system=system,
+        batch_size=B if batch is None else batch,
         tfep_logger_dir_path=logs,
         mapped_atoms=list(range(1, n_mol)), conditioning_atoms=[0],
         origin_atom=0, axes_atoms=[1, 2], pca_whitening=True,
@@ -3461,6 +3488,611 @@ def bf16_phase(device, smi, handoff):
                 launches=launches, losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: multi-process training (parallel/{distributed,sharding}): one
+# rank over NCCL, two ranks on the one card over gloo, and the fused EGNN
+# field as a vmapped ensemble.
+# ---------------------------------------------------------------------------
+
+# (a) and (b)(i): three global batches of phase 9's configuration.
+PARALLEL_STEPS = 3
+PARALLEL_FRAMES = PARALLEL_STEPS * B
+PARALLEL_RANKS = 2
+# (a) Steps between the two timed fits whose difference times a step.
+PARALLEL_TIMED_STEPS = 10
+PARALLEL_TIMEOUT_S = 300
+# (a) The sharded fit on one rank against the unsharded fit: the same
+# float32 operations in the same order, and an all-reduce of one rank
+# that copies (and divides by 1), so bit-identical is expected; 1e-6 of
+# the scale leaves room only for a library reduction that sums in another
+# order on another call.
+PARALLEL_NCCL_TOL = 1e-6
+# (b)(i) Two ranks at 2048 rows each against one process at 4096 on the
+# same global batches: each rank's mean over 2048 frames, averaged over
+# the ranks, sums in another order than one mean over 4096 (a few float32
+# ulp). The loss as APP_LOSS_TOL; the first step's gradients per tensor
+# as ENSEMBLE_GRAD_TOL; the weights after the steps ENGINE_WEIGHT_TOL per
+# step (AdamW moves a weight whose gradient is rounding noise by up to lr
+# either way).
+PARALLEL_WEIGHT_TOL = PARALLEL_STEPS * ENGINE_WEIGHT_TOL
+# (b)(ii) tp = 2 against the replicated flow: the row-parallel layer adds
+# two partial products of 239 terms where cuBLAS sums 478 in one, and its
+# weight norm two partial sums of squares: forward as MAP_TOL (of
+# max(1, max|y|)). The gradients are held against a float64 copy of the
+# replicated flow (plain spline path), beside the replicated float32
+# flow's own error: a tensor whose gradient is a batch sum that cancels
+# (an output bias) keeps float32 rounding against a small norm, 1.4e-3 of
+# it in the first chip run. Per tensor, the split flow's error may be
+# TP_GRAD_FACTOR times the replicated flow's own, plus ENSEMBLE_GRAD_TOL
+# of the norm; a missing or doubled all-reduce is off by about the norm.
+# The weights after one AdamW step: each moves by at most lr (1e-4) plus
+# the decay lr * 1e-4 * |w| either way, so two runs differ by less than
+# TP_STEP_TOL for |w| < 500.
+TP_GRAD_FACTOR = 4.0
+TP_STEP_TOL = 2.1e-4
+# (c) The ensemble of two EGNN fields against each field alone: the same
+# kernels on the same inputs, one launch per member, so bit-identical is
+# expected; against the plain (dense) version as phase [6]'s
+# EGNN_FORWARD_TOL and, per tensor, EGNN_BACKWARD_TOL.
+EGNN_MEMBERS = 2
+EGNN_ENSEMBLE_T = 0.3
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def parallel_frames():
+    """Phase 9's frames, PARALLEL_FRAMES of them, as (n, atoms, 3)."""
+    return cartesian_frames(PARALLEL_FRAMES).reshape(-1, CART_ATOMS, 3)
+
+
+def parallel_system(frames):
+    from tfep_tpu_torch.io.traj import System
+    return System(app_topology(), frames)
+
+
+def parallel_state(device):
+    """Phase 9's map, set up, its weights perturbed from the seed (the
+    identity initialization zeroes the output gains): the weights every
+    run of phase 15 (a) and (b)(i) starts from, on the host."""
+    tfep_map = app_map(device, parallel_system(parallel_frames()),
+                       HarmonicPotential(), None)
+    generator = torch.Generator().manual_seed(SEED + 15)
+    with torch.no_grad():
+        for p in tfep_map.flow.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=generator).to(p))
+    return {k: v.detach().cpu().clone()
+            for k, v in tfep_map.flow.state_dict().items()}
+
+
+def global_batch_order(n_frames, local_batch, n_ranks):
+    """The frames in the order of the global batches of ``n_ranks`` ranks
+    on contiguous shards (no shuffle): step k is each rank's k-th local
+    batch, in rank order."""
+    shards = np.arange(n_frames).reshape(n_ranks, -1, local_batch)
+    return shards.transpose(1, 0, 2).reshape(-1)
+
+
+def nccl_rank_phase(device, smi, state):
+    """Phase 15 (a): Trainer(sharding=...) on one rank over NCCL at phase
+    9's configuration, against the unsharded fit; the step times and the
+    all-reduce's device time."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tfep_tpu_torch.app import Trainer
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+    from tfep_tpu_torch.parallel.distributed import backend_for
+    from tfep_tpu_torch.parallel.sharding import batch_sharding, make_mesh
+
+    mesh = make_mesh(device=device)
+    if (dist.get_backend() != backend_for(device)
+            or dist.get_world_size() != 1):
+        raise AssertionError('(a) not one rank over NCCL')
+    system = parallel_system(parallel_frames())
+
+    def fit(sharded, n_steps, **kwargs):
+        tfep_map = app_map(device, system, HarmonicPotential(), None, state)
+        trainer = Trainer(save_dir=None, max_steps=n_steps, shuffle=False,
+                          sharding=batch_sharding(mesh) if sharded else None,
+                          **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(tfep_map)
+        torch.cuda.synchronize()
+        return tfep_map, trainer, time.perf_counter() - t0
+
+    LAUNCHES.reset()
+    sharded, sharded_trainer, _ = fit(True, PARALLEL_STEPS)
+    launches = (LAUNCHES.forward, LAUNCHES.backward)
+    n_params = sum(p.numel() for p in sharded.flow.parameters())
+    plain, plain_trainer, _ = fit(False, PARALLEL_STEPS)
+    loss_diff = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(
+        sharded_trainer.loss_history, plain_trainer.loss_history))
+    weights, same = weights_diff(list(sharded.flow.parameters()),
+                                 list(plain.flow.parameters()))
+    same &= sharded_trainer.loss_history == plain_trainer.loss_history
+    say(f'  (a) one rank over NCCL (make_mesh(): world 1, mesh '
+        f'{tuple(mesh.shape)}), phase [9]\'s CartesianMAFMap ({n_params} '
+        f'parameters, batch {B}, no logger), {PARALLEL_STEPS} steps of '
+        f'Trainer(sharding=batch_sharding(mesh)) against the unsharded fit '
+        f'from the same weights: losses {sharded_trainer.loss_history}; '
+        f'max loss difference {loss_diff:.3e} of scale, weights max|diff| '
+        f'{weights:.3e} (tolerance {PARALLEL_NCCL_TOL:g}); bit-identical: '
+        f'{same}; K1/K2 launches {launches}')
+    if not (loss_diff <= PARALLEL_NCCL_TOL and weights <= PARALLEL_NCCL_TOL):
+        raise AssertionError('(a) the sharded fit differs from the '
+                             'unsharded one')
+    if launches != (N_LAYERS * PARALLEL_STEPS, N_LAYERS * PARALLEL_STEPS):
+        raise AssertionError(f'(a) K1/K2 launched {launches}')
+    calls = sharded_trainer.host_seconds['allreduce']
+    if calls[1] != PARALLEL_STEPS:
+        raise AssertionError(f'(a) {calls[1]} all-reduces in '
+                             f'{PARALLEL_STEPS} steps')
+    del sharded, plain
+
+    # Step times: the difference of two fits of different length.
+    times = {}
+    for sharded_run in (False, True):
+        short = fit(sharded_run, PARALLEL_STEPS)[2]
+        long = fit(sharded_run, PARALLEL_STEPS + PARALLEL_TIMED_STEPS)[2]
+        times[sharded_run] = 1e3 * (long - short) / PARALLEL_TIMED_STEPS
+    # The all-reduce's device time, from the profiler.
+    with tempfile.TemporaryDirectory() as work:
+        _, profiled, _ = fit(True, 5, profile_dir=work, profile_steps=(2, 5))
+    from torch.autograd import DeviceType
+    nccl = [e for e in profiled.profile.events()
+            if e.device_type == DeviceType.CUDA
+            and 'nccl' in e.name.lower()]
+    reduce_ms = sum(e.time_range.elapsed_us() for e in nccl) / 3 / 1e3
+    host_ms = 1e3 * profiled.host_seconds['allreduce'][0] / \
+        profiled.host_seconds['allreduce'][1]
+    grad_bytes = 4 * (n_params + 1)
+    # The collective alone on a buffer of the same size, CUDA events.
+    flat = torch.zeros(n_params + 1, device=device)
+    call_ms, call_host_ms = event_ms(lambda: dist.all_reduce(flat), 20, [()])
+    dist.destroy_process_group()
+    say(f'  (a) step: unsharded {times[False]:.3f} ms, sharded '
+        f'{times[True]:.3f} ms (two fits of {PARALLEL_STEPS} and '
+        f'{PARALLEL_STEPS + PARALLEL_TIMED_STEPS} steps); the all-reduce of '
+        f'{grad_bytes} bytes (gradients and the loss): {reduce_ms:.3f} ms '
+        f'of device time per step in {len(nccl) / 3:g} NCCL kernels '
+        f'(profiler: {sorted({e.name for e in nccl})}), '
+        f'{host_ms:.3f} ms of host time per call in the step; '
+        f'dist.all_reduce alone on {grad_bytes} bytes: {call_ms:.4f} ms '
+        f'(CUDA events over 20 calls; host {call_host_ms:.4f} ms); [{smi}]')
+    return dict(launches=launches, bit_identical=same, loss_diff=loss_diff,
+                weights_diff=weights, step_ms=times[False],
+                sharded_step_ms=times[True], allreduce_device_ms=reduce_ms,
+                allreduce_kernels=len(nccl) / 3, allreduce_call_ms=call_ms,
+                allreduce_host_ms=host_ms, allreduce_bytes=grad_bytes)
+
+
+def parallel_rank(port, rank, work, device='cuda'):
+    """One of the two ranks of phase 15 (b), on the one card over gloo
+    (NCCL refuses two ranks on one device): (i) data parallelism at phase
+    9's configuration, (ii) phase 3's MAF split over tp = 2, (iii)
+    shard_ensemble of 4 members. Writes ``work/rank-<rank>.pt``."""
+    import torch.distributed as dist
+
+    from tfep_tpu_torch.app import Trainer
+    from tfep_tpu_torch.app.trainer import default_optimizer
+    from tfep_tpu_torch.nn.conditioners.made import MADE
+    from tfep_tpu_torch.nn.ensemble import (
+        ensemble_init, make_ensemble_train_step, stack_modules,
+    )
+    from tfep_tpu_torch.ops.spline import LAUNCHES
+    from tfep_tpu_torch.parallel import distributed as D
+    from tfep_tpu_torch.parallel import sharding as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    D.initialize(backend='gloo', init_method=f'tcp://127.0.0.1:{port}',
+                 world_size=PARALLEL_RANKS, rank=rank,
+                 timeout=PARALLEL_TIMEOUT_S)
+    mesh = S.make_mesh(device=device)
+    result = {}
+
+    # (i) Data parallelism: each rank its half of the frames.
+    grads = []
+    state = torch.load(f'{work}/state.pt', weights_only=False)
+    tfep_map = app_map(device, parallel_system(parallel_frames()),
+                       HarmonicPotential(), None, state,
+                       batch=B // PARALLEL_RANKS)
+    trainer = Trainer(save_dir=None, max_steps=PARALLEL_STEPS, shuffle=False,
+                      optimizer=recording(grads),
+                      sharding=S.batch_sharding(mesh))
+    LAUNCHES.reset()
+    trainer.fit(tfep_map)
+    result['dp'] = dict(
+        losses=trainer.loss_history,
+        launches=(LAUNCHES.forward, LAUNCHES.backward),
+        weights=[p.detach().cpu() for p in tfep_map.flow.parameters()],
+        grads=[g.cpu() for g in grads[0]],
+        allreduce=trainer.host_seconds['allreduce'])
+    del tfep_map, trainer, grads
+
+    # (ii) Tensor parallelism over tp = 2 (a (1, 2) mesh).
+    tp_mesh = S.make_mesh(model_axis_size=PARALLEL_RANKS, device=device)
+    flow, frames = build_slice(device)
+    reference = copy.deepcopy(flow)
+    S.shard_module(flow, tp_mesh)
+    shapes = [(getattr(layer, 'kind', 'plain'), tuple(layer.weight.shape))
+              for m in flow.modules() if isinstance(m, MADE)
+              for layer in m.layers]
+    LAUNCHES.reset()
+    y, ldj = flow(frames)
+    loss = ensemble_loss(flow, frames)
+    flow_grads = torch.autograd.grad(loss, list(flow.parameters()))
+    launches = (LAUNCHES.forward, LAUNCHES.backward)
+    y_ref, ldj_ref = reference(frames)
+    ref_grads = dict(zip(
+        [n for n, _ in reference.named_parameters()],
+        torch.autograd.grad(ensemble_loss(reference, frames),
+                            list(reference.parameters()))))
+    exact = copy.deepcopy(reference).double()
+    set_fused(exact, 'never')
+    exact_grads = dict(zip(
+        [n for n, _ in exact.named_parameters()],
+        torch.autograd.grad(ensemble_loss(exact, frames.double()),
+                            list(exact.parameters()))))
+    del exact
+    shards = S.sharded_parameters(flow)
+    grad_err = dict(split=0.0, replicated=0.0, ratio=0.0, passed=True,
+                    worst='')
+    for (name, _), g in zip(flow.named_parameters(), flow_grads):
+        dim, group = shards.get(name, (None, None))
+
+        def mine(t):
+            return t if dim is None else S.local_slice(
+                t, dim, dist.get_rank(group), dist.get_world_size(group))
+
+        truth = mine(exact_grads[name])
+        norm = float(truth.norm())
+        split = float((g.double() - truth).norm())
+        replicated = float((mine(ref_grads[name]).double() - truth).norm())
+        grad_err['split'] = max(grad_err['split'], split / norm)
+        grad_err['replicated'] = max(grad_err['replicated'],
+                                     replicated / norm)
+        ratio = split / max(replicated, 1e-30)
+        if ratio > grad_err['ratio']:
+            grad_err.update(ratio=ratio, worst=name)
+        grad_err['passed'] &= (split <= TP_GRAD_FACTOR * replicated
+                               + ENSEMBLE_GRAD_TOL * norm)
+    # One AdamW step on each, from the gradients above.
+    for module, gs in ((flow, flow_grads),
+                       (reference, [ref_grads[n] for n, _ in
+                                    reference.named_parameters()])):
+        optimizer = default_optimizer(list(module.parameters()))
+        for p, g in zip(module.parameters(), gs):
+            p.grad = g
+        optimizer.step()
+    whole = S.full_state_dict(flow)
+    step_diff = max(float((whole[k] - v).abs().max())
+                    for k, v in reference.state_dict().items()
+                    if v.is_floating_point())
+    result['tp'] = dict(
+        shapes=shapes, launches=launches,
+        y=rel_err(y.detach(), y_ref.detach()),
+        ldj=rel_err(ldj.detach(), ldj_ref.detach()), grads=grad_err,
+        step=step_diff, loss=float(loss))
+    del flow, reference, whole, flow_grads, ref_grads
+
+    # (iii) shard_ensemble: ENSEMBLE_CHECKED members over the two ranks.
+    members = [build_slice(device, seed=SEED + 1 + i,
+                           batch=ENSEMBLE_BATCH)[0]
+               for i in range(ENSEMBLE_CHECKED)]
+    ens_frames = torch.randn(ENSEMBLE_BATCH, F, generator=torch.Generator(
+        ).manual_seed(SEED + 100)).to(device)
+    stacked = S.shard_ensemble(stack_modules(members), mesh,
+                               n_members=ENSEMBLE_CHECKED)
+    step = make_ensemble_train_step(ensemble_loss, ensemble_init(
+        default_optimizer, stacked))
+    LAUNCHES.reset()
+    losses = [step(stacked, ens_frames).cpu()
+              for _ in range(ENSEMBLE_COUNTED_STEPS)]
+    result['ensemble'] = dict(
+        losses=torch.stack(losses), launches=(LAUNCHES.forward,
+                                              LAUNCHES.backward),
+        weights={k: v.detach().cpu() for k, v in stacked.named_parameters()})
+    torch.save(result, f'{work}/rank-{rank}.pt')
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_ranks_phase(device, smi, state):
+    """Phase 15 (b): two ranks spawned on the one card (gloo), each
+    running :func:`parallel_rank`, held against one process."""
+    import os
+    import shutil
+    import tempfile
+
+    from tfep_tpu_torch.app import Trainer
+    from tfep_tpu_torch.app.trainer import default_optimizer
+    from tfep_tpu_torch.nn.ensemble import (
+        ensemble_init, make_ensemble_train_step, stack_modules,
+    )
+
+    work = tempfile.mkdtemp(prefix='tfep_parallel_')
+    torch.save(state, os.path.join(work, 'state.pt'))
+    port = free_port()
+    logs = [os.path.join(work, f'rank-{r}.log')
+            for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    procs = []
+    for rank, log in enumerate(logs):
+        with open(log, 'w') as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--parallel-rank',
+                 str(port), str(rank), work, device.type], stdout=out,
+                stderr=subprocess.STDOUT))
+    try:
+        # Meanwhile, the one-process references of (i) and (iii).
+        frames = parallel_frames()
+        order = global_batch_order(PARALLEL_FRAMES, B // PARALLEL_RANKS,
+                                   PARALLEL_RANKS)
+        grads = []
+        one = app_map(device, parallel_system(frames[order]),
+                      HarmonicPotential(), None, state)
+        trainer = Trainer(save_dir=None, max_steps=PARALLEL_STEPS,
+                          shuffle=False, optimizer=recording(grads))
+        trainer.fit(one)
+        one_losses = trainer.loss_history
+        one_weights = [p.detach().cpu() for p in one.flow.parameters()]
+        one_grads = [g.cpu() for g in grads[0]]
+        del one, trainer, grads
+        members = [build_slice(device, seed=SEED + 1 + i,
+                               batch=ENSEMBLE_BATCH)[0]
+                   for i in range(ENSEMBLE_CHECKED)]
+        ens_frames = torch.randn(ENSEMBLE_BATCH, F, generator=torch.Generator(
+            ).manual_seed(SEED + 100)).to(device)
+        stacked = stack_modules(members)
+        step = make_ensemble_train_step(ensemble_loss, ensemble_init(
+            default_optimizer, stacked))
+        ens_losses = torch.stack([step(stacked, ens_frames).cpu()
+                                  for _ in range(ENSEMBLE_COUNTED_STEPS)])
+        ens_weights = {k: v.detach().cpu()
+                       for k, v in stacked.named_parameters()}
+        del members, stacked, step
+        for proc in procs:
+            proc.wait(timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for proc, log in zip(procs, logs):
+        if proc.returncode != 0:
+            with open(log) as f:
+                say(f.read()[-6000:])
+            raise AssertionError(f'(b) a rank exited with {proc.returncode}')
+    results = [torch.load(os.path.join(work, f'rank-{r}.pt'),
+                          weights_only=False) for r in range(PARALLEL_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    say(f'  (b) {PARALLEL_RANKS} ranks spawned on the one card, gloo '
+        f'(NCCL refuses two ranks on one device); {wall:.1f} s with the '
+        f'references in this process')
+
+    # (i)
+    first, second = (r['dp'] for r in results)
+    loss_diff = max(abs(a - b) / max(1.0, abs(b))
+                    for a, b in zip(first['losses'], one_losses))
+    grad_err = grads_diff(first['grads'], one_grads)
+    weights, _ = weights_diff(first['weights'], one_weights)
+    rank_weights, rank_same = weights_diff(first['weights'],
+                                           second['weights'])
+    say(f'  (b)(i) data parallelism, {B // PARALLEL_RANKS} rows per rank, '
+        f'{PARALLEL_STEPS} steps, against one process at batch {B} on the '
+        f'same global batches: losses {first["losses"]} (one process '
+        f'{one_losses}), {loss_diff:.3e} of scale (tolerance '
+        f'{APP_LOSS_TOL:g}); first gradients, largest |diff|/|g| per tensor '
+        f'{grad_err:.3e} (tolerance {ENSEMBLE_GRAD_TOL:g}); weights max|diff|'
+        f' {weights:.3e} (tolerance {PARALLEL_WEIGHT_TOL:g}); the two ranks\' '
+        f'losses equal: {first["losses"] == second["losses"]}, weights '
+        f'bit-identical: {rank_same}; K1/K2 per rank {first["launches"]}, '
+        f'{first["allreduce"][1]} all-reduces, '
+        f'{1e3 * first["allreduce"][0] / first["allreduce"][1]:.3f} ms each '
+        f'(host, gloo on CUDA tensors)')
+    if not (loss_diff <= APP_LOSS_TOL and grad_err <= ENSEMBLE_GRAD_TOL
+            and weights <= PARALLEL_WEIGHT_TOL):
+        raise AssertionError('(b)(i) the data-parallel fit differs from one '
+                             'process')
+    if first['losses'] != second['losses'] or not rank_same:
+        raise AssertionError('(b)(i) the ranks disagree')
+    expected = (N_LAYERS * PARALLEL_STEPS, N_LAYERS * PARALLEL_STEPS)
+    if first['launches'] != expected or second['launches'] != expected:
+        raise AssertionError('(b)(i) K1/K2 launches')
+
+    # (ii)
+    for rank, result in enumerate(results):
+        tp = result['tp']
+        grads = tp['grads']
+        say(f'  (b)(ii) rank {rank}, phase [3]\'s MAF over tp = 2: MADE '
+            f'weight shapes per layer {sorted(set(tp["shapes"]))}; y '
+            f'{tp["y"][1]:.3e}, log_det_J {tp["ldj"][1]:.3e} of scale '
+            f'against the replicated flow (tolerance {MAP_TOL:g}); '
+            f'gradients against float64, largest |diff|/|g| per tensor: '
+            f'split {grads["split"]:.3e}, replicated float32 '
+            f'{grads["replicated"]:.3e}; largest ratio of the two '
+            f'{grads["ratio"]:.2f} ({grads["worst"]}; tolerance '
+            f'{TP_GRAD_FACTOR:g} x the replicated error + '
+            f'{ENSEMBLE_GRAD_TOL:g} of the norm): '
+            f'{"held" if grads["passed"] else "MISSED"}; weights after one '
+            f'AdamW step max|diff| {tp["step"]:.3e} (tolerance '
+            f'{TP_STEP_TOL:g}); K1/K2 {tp["launches"]} in two forwards and '
+            f'a backward')
+        kinds = [kind for kind, _ in tp['shapes']]
+        if kinds != ['column', 'column', 'row'] * N_LAYERS:
+            raise AssertionError(f'(b)(ii) the layers are {kinds}')
+        if not (tp['y'][1] <= MAP_TOL and tp['ldj'][1] <= MAP_TOL
+                and grads['passed'] and tp['step'] <= TP_STEP_TOL):
+            raise AssertionError('(b)(ii) the tensor-parallel flow differs')
+        if tp['launches'] != (2 * N_LAYERS, N_LAYERS):
+            raise AssertionError(f'(b)(ii) K1/K2 launched {tp["launches"]}')
+
+    # (iii)
+    per_rank = ENSEMBLE_CHECKED // PARALLEL_RANKS
+    worst = dict(loss=0.0, weights=0.0)
+    for rank, result in enumerate(results):
+        ens = result['ensemble']
+        rows = slice(rank * per_rank, (rank + 1) * per_rank)
+        worst['loss'] = max(worst['loss'], float(
+            ((ens['losses'] - ens_losses[:, rows]).abs()
+             / ens_losses[:, rows].abs().clamp(min=1.0)).max()))
+        for name, value in ens['weights'].items():
+            worst['weights'] = max(worst['weights'], float(
+                (value - ens_weights[name][rows]).abs().max()))
+        if ens['launches'] != (N_LAYERS * ENSEMBLE_COUNTED_STEPS,) * 2:
+            raise AssertionError(f'(b)(iii) K1/K2 launched {ens["launches"]}')
+    weight_tol = ENSEMBLE_COUNTED_STEPS * ENGINE_WEIGHT_TOL
+    say(f'  (b)(iii) shard_ensemble, {ENSEMBLE_CHECKED} members of phase '
+        f'[3]\'s flow over {PARALLEL_RANKS} ranks ({per_rank} each, batch '
+        f'{ENSEMBLE_BATCH}), {ENSEMBLE_COUNTED_STEPS} steps against the '
+        f'unsharded ensemble: losses {worst["loss"]:.3e} of scale '
+        f'(tolerance {ENSEMBLE_LOSS_TOL:g}), weights max|diff| '
+        f'{worst["weights"]:.3e} (tolerance {weight_tol:g}); K1/K2 per rank '
+        f'{results[0]["ensemble"]["launches"]}')
+    if not (worst['loss'] <= ENSEMBLE_LOSS_TOL
+            and worst['weights'] <= weight_tol):
+        raise AssertionError('(b)(iii) the sharded ensemble differs')
+    launches = [sum(r[key]['launches'][i] for r in results
+                    for key in ('dp', 'tp', 'ensemble')) for i in (0, 1)]
+    return dict(
+        dp=dict(loss_diff=loss_diff, grads=grad_err, weights=weights),
+        tp=[dict(shapes=sorted(set(r['tp']['shapes'])), y=r['tp']['y'][1],
+                 ldj=r['tp']['ldj'][1], grads=r['tp']['grads'],
+                 step=r['tp']['step']) for r in results],
+        ensemble=worst, wall_s=wall, launches=tuple(launches))
+
+
+def egnn_ensemble_phase(device, smi):
+    """Phase 15 (c): cnf_bench's EGNN field, pairwise='fused', as a K = 2
+    ensemble under ensemble_map: forward_and_jvp and its gradient against
+    each field alone and against the plain (dense) version; K3/K4/K5
+    counted."""
+    from tfep_tpu_torch.nn.dynamics import EGNNDynamics
+    from tfep_tpu_torch.nn.ensemble import (
+        ensemble_init, ensemble_map, make_ensemble_train_step, stack_modules,
+    )
+    from tfep_tpu_torch.ops.egnn import LAUNCHES
+
+    fields = [EGNNDynamics.create(
+        torch.Generator().manual_seed(SEED + 20 + i),
+        node_types=np.arange(N_ATOMS) % 4, r_cutoff=R_CUTOFF,
+        time_feat_dim=16, node_feat_dim=CNF_FEAT,
+        distance_feat_dim=CNF_FEAT, n_layers=CNF_LAYERS,
+        initialize_identity=False, device=device, pairwise='fused')
+        for i in range(EGNN_MEMBERS)]
+    dense = []
+    for field in fields:
+        plain = copy.deepcopy(field)
+        for layer in plain.graph_layers:
+            layer.pairwise = 'dense'
+        dense.append(plain)
+    generator = torch.Generator().manual_seed(SEED + 30)
+    x = (0.5 * torch.randn(CNF_BATCH, 3 * N_ATOMS, generator=generator)
+         ).to(device)
+    v = torch.randn(CNF_BATCH, 3 * N_ATOMS, generator=generator).to(device)
+    t = EGNN_ENSEMBLE_T
+
+    def loss(field, batch):
+        f, df = field.forward_and_jvp(t, *batch)
+        return torch.mean(f * f) + torch.mean(f * df)
+
+    stacked = stack_modules(fields)
+    LAUNCHES.reset()
+    f, df = ensemble_map(lambda m, x, v: m.forward_and_jvp(t, x, v),
+                         stacked, x, v)
+    k4 = LAUNCHES.k4
+    LAUNCHES.reset()
+    with torch.no_grad():
+        out = ensemble_map(lambda m, x: m(t, x), stacked, x)
+    k3 = LAUNCHES.k3
+    grads = []
+    step = make_ensemble_train_step(loss, ensemble_init(recording(grads),
+                                                        stacked))
+    LAUNCHES.reset()
+    losses = step(stacked, (x, v))
+    counted = (LAUNCHES.k3, LAUNCHES.k4, LAUNCHES.k5)
+    torch.cuda.synchronize()
+    expected = EGNN_MEMBERS * CNF_LAYERS
+    if (k3, k4) != (expected, expected) or counted != (0, expected,
+                                                       expected):
+        raise AssertionError(f'(c) K3/K4/K5 launched {k3}, {k4}, {counted}')
+    worst = dict(alone=0.0, plain=0.0, grad_alone=0.0, grad_plain=0.0)
+    same = True
+    for k, (field, plain) in enumerate(zip(fields, dense)):
+        with torch.no_grad():
+            f_k, df_k = field.forward_and_jvp(t, x, v)
+            out_k = field(t, x)
+            f_p, df_p = plain.forward_and_jvp(t, x, v)
+        same &= bool(torch.equal(f[k], f_k) and torch.equal(df[k], df_k)
+                     and torch.equal(out[k], out_k))
+        for ours, alone, theirs in ((f[k], f_k, f_p), (df[k], df_k, df_p)):
+            worst['alone'] = max(worst['alone'],
+                                 rel_err(ours.detach(), alone)[1])
+            worst['plain'] = max(worst['plain'],
+                                 rel_err(ours.detach(), theirs)[1])
+        params = list(field.parameters())
+        g_alone = torch.autograd.grad(loss(field, (x, v)), params,
+                                      allow_unused=True)
+        g_plain = torch.autograd.grad(loss(plain, (x, v)),
+                                      list(plain.parameters()),
+                                      allow_unused=True)
+        ours = [g[k] for g in grads[0]]
+        fill = [torch.zeros_like(p) for p in params]
+        worst['grad_alone'] = max(worst['grad_alone'], grads_diff(
+            ours, [g if g is not None else z
+                   for g, z in zip(g_alone, fill)]))
+        worst['grad_plain'] = max(worst['grad_plain'], grads_diff(
+            ours, [g if g is not None else z
+                   for g, z in zip(g_plain, fill)]))
+    say(f'  (c) {EGNN_MEMBERS} fields of cnf_bench\'s EGNN ({N_ATOMS} atoms, '
+        f'{CNF_LAYERS} layers of width {CNF_FEAT}, batch {CNF_BATCH}, '
+        f'pairwise=\'fused\') stacked, under ensemble_map: K4 {k4} per '
+        f'forward_and_jvp, K3 {k3} per no-grad field, K3/K4/K5 {counted} per '
+        f'make_ensemble_train_step (one launch per member and layer); '
+        f'against each field alone: values and tangents {worst["alone"]:.3e}'
+        f' of scale, bit-identical {same}, gradients {worst["grad_alone"]:.3e}'
+        f' per tensor (tolerances {EGNN_FORWARD_TOL:g}, {EGNN_BACKWARD_TOL:g});'
+        f' against the plain (dense) version: {worst["plain"]:.3e}, '
+        f'gradients {worst["grad_plain"]:.3e}; losses '
+        f'{[round(float(l), 6) for l in losses]}; [{smi}]')
+    if not (worst['alone'] <= EGNN_FORWARD_TOL
+            and worst['plain'] <= EGNN_FORWARD_TOL
+            and worst['grad_alone'] <= EGNN_BACKWARD_TOL
+            and worst['grad_plain'] <= EGNN_BACKWARD_TOL
+            and torch.isfinite(losses).all()):
+        raise AssertionError('(c) the EGNN ensemble differs')
+    return dict(checks=worst, bit_identical=same,
+                launches={'k3': k3 + counted[0], 'k4': k4 + counted[1],
+                          'k5': counted[2]})
+
+
+def parallel_phase(device, smi):
+    """Phase 15: (a), (b) and (c); returns their results and time."""
+    t0 = time.perf_counter()
+    state = parallel_state(device)
+    nccl = nccl_rank_phase(device, smi, state)
+    torch.cuda.empty_cache()
+    ranks = parallel_ranks_phase(device, smi, state)
+    torch.cuda.empty_cache()
+    egnn = egnn_ensemble_phase(device, smi)
+    seconds = time.perf_counter() - t0
+    say(f'  phase [15] took {seconds:.1f} s')
+    launches = (nccl['launches'][0] + ranks['launches'][0],
+                nccl['launches'][1] + ranks['launches'][1])
+    return dict(nccl=nccl, ranks=ranks, egnn=egnn, seconds=seconds,
+                launches=launches)
+
+
 def main():
     import threading
 
@@ -3569,6 +4201,12 @@ def main():
         '[3]\'s MAF with compute_dtype=\'bfloat16\'')
     ensemble = ensemble_phase(device, smi)
     bf16 = bf16_phase(device, smi, maf_handoff)
+    torch.cuda.empty_cache()
+
+    say('[15] multi-process training: Trainer(sharding=...) on one rank '
+        'over NCCL; two ranks on the one card over gloo (data, tensor and '
+        'ensemble parallelism); the fused EGNN field as a vmapped ensemble')
+    parallel = parallel_phase(device, smi)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -3593,7 +4231,9 @@ def main():
                 'engine_map': engine['launches'][i],
                 'engine_map_pipelined': engine['pipelined_launches'][i],
                 'ensemble': ensemble['launches'][i],
-                'maf_bf16': bf16['launches'][i]},
+                'maf_bf16': bf16['launches'][i],
+                'parallel_nccl': parallel['nccl']['launches'][i],
+                'parallel_two_ranks': parallel['ranks']['launches'][i]},
             'max_abs_err': max(errors[which], cart['errors'][which],
                                mixed['errors'][which],
                                ensemble['errors'][which]),
@@ -3617,8 +4257,10 @@ def main():
             'name': row['name'], 'route': 'cuda',
             'source': 'tfep_tpu_torch/csrc/egnn.cu',
             'replaces': where, 'launches': cnf_launches[count],
-            'launches_by_path': {'cnf_slice': cnf_launches[count],
-                                 'cnf_map': cnf_map['launches'][count]},
+            'launches_by_path': {
+                'cnf_slice': cnf_launches[count],
+                'cnf_map': cnf_map['launches'][count],
+                'egnn_ensemble': parallel['egnn']['launches'][count]},
             'max_abs_err': egnn_errors[label],
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
@@ -3644,6 +4286,7 @@ def main():
                     'ensemble': {k: v for k, v in ensemble.items()
                                  if k != 'errors'},
                     'maf_bf16': bf16,
+                    'parallel': parallel,
                     'card': smi}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -3652,4 +4295,8 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--parallel-rank']:
+        parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                      sys.argv[5])
+    else:
+        main()

@@ -670,7 +670,9 @@ def test_profile_window_and_host_times(tmp_path):
 
 
 def test_sharding_and_engine_overlap_are_not_ported():
-    with pytest.raises(NotImplementedError, match='sharding'):
+    # sharding is ported (tests/test_torch_distributed.py): it takes a
+    # batch_sharding(mesh) and rejects anything else.
+    with pytest.raises(TypeError, match='sharding'):
         Trainer(max_steps=1, sharding=object())
     # engine_overlap is ported (tests/test_torch_pipeline.py): it builds.
     assert Trainer(max_steps=1, engine_overlap=True).engine_overlap

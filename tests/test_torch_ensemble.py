@@ -1,6 +1,7 @@
 """Vmapped ensembles of the port (``nn/ensemble.py``) against the JAX
 package, float64 on the CPU: each case of ``tests/nn/test_ensemble.py``
-but the three ``shard_ensemble`` ones (sharding is not ported yet), with
+but the three ``shard_ensemble`` ones (in ``tests/test_torch_sharding.py``,
+over processes), with
 members of the affine MAF and of the spline MAF; the carrying of a JAX
 stacked ensemble; and the fused spline's ``vmap`` rule, which folds the
 members' rows into one launch of each kernel."""

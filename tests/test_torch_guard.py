@@ -35,11 +35,15 @@ from tfep_tpu_torch.nn.transformers import (
     VolumePreservingShiftTransformer,
 )
 from tfep_tpu_torch.ops.zmatrix import PlacementSchedule
+from tfep_tpu_torch.parallel.distributed import initialize
+from tfep_tpu_torch.parallel.sharding import make_mesh
 from tfep_tpu_torch.units import ureg
 
 ROOT = Path(__file__).resolve().parents[1]
+# The port, its smoke run and the test workers that its multi-process
+# tests start (which must run without JAX).
 PORT_FILES = sorted((ROOT / 'tfep_tpu_torch').rglob('*.py')) + [
-    ROOT / 'chip_smoke.py']
+    ROOT / 'chip_smoke.py'] + sorted((ROOT / 'tests').glob('torch_*.py'))
 
 
 def _map_args():
@@ -132,6 +136,8 @@ def no_card(monkeypatch):
     lambda: PlacementSchedule([[3, 0, 1, 2]], 4),
     lambda: CartesianToMixedFlow.create(None, [0, 1, 2], [[3, 0, 1, 2]],
                                         [0, 1, 2], [True] * 3),
+    lambda: make_mesh(),
+    lambda: initialize(world_size=2, rank=0),
 ])
 def test_entry_points_without_device_raise(no_card, entry_point):
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -20,8 +20,15 @@ k+1 runs on the card while a host thread runs the external engine on
 batch k, and each update applies the exact gradient at the parameters the
 engine saw (one step delayed). See :meth:`Trainer._fit_pipelined`.
 
-Not ported yet: ``sharding`` (data parallelism); setting it raises
-``NotImplementedError``.
+Data parallelism (``sharding=batch_sharding(mesh)``, see
+:mod:`tfep_tpu_torch.parallel.sharding`): one process per device, each
+training on its own shard of the frames (``host_frame_indices``) with
+``batch_size`` rows per step; after each backward one all-reduce over the
+mesh's ``dp`` axis averages the gradients and the loss, so every rank
+applies the update of the global batch and records the same loss. Rank 0
+alone writes the checkpoint; a flow whose MADE layers are split over the
+``tp`` axis (``shard_module``) keeps its shards, and its checkpoint holds
+the whole tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tfep_tpu_torch.io.sampler import StatefulBatchSampler
 
@@ -82,8 +90,24 @@ class Trainer:
         with device compute.
     drop_last : bool, optional
         Drop the final incomplete batch of each epoch.
-    sharding : optional
-        Data parallelism; not ported yet (raises ``NotImplementedError``).
+    sharding : BatchSharding, optional
+        Data parallelism over a mesh's ``dp`` axis
+        (:func:`tfep_tpu_torch.parallel.sharding.batch_sharding`). Each
+        rank trains on its ``host_frame_indices`` shard of the map's
+        dataset (the logged ``dataset_sample_index`` stays the dataset's),
+        ``batch_size`` is the local batch, and the gradients and the loss
+        are averaged over the axis after each backward: with the local
+        batches equal in size, the update and :attr:`loss_history` are
+        the global batch's (up to the order of the sums), on every rank.
+        The exception is a loss that is not a plain mean over the batch
+        (``log_weights``, or NaN samples dropped by ``ignore_nan``): it is
+        averaged over the ranks' batches as they are. Unseeded shuffles
+        use one seed drawn on rank 0. At the start of :meth:`fit` each
+        rank takes the parameters of the first rank of its ``dp`` group.
+        The default optimizer is elementwise; an ``optimizer`` that
+        reduces over the whole model (clipping by the global norm) must
+        take a tensor-parallel flow's shards over their group, as
+        :func:`tfep_tpu_torch.parallel.sharding.clip_grad_norm_` does.
     log_every_n_steps : int, optional
         Print ``epoch/step/loss`` every N optimization steps; 0 disables
         console output. The loss of every step is recorded in
@@ -120,7 +144,9 @@ class Trainer:
         the forward whose positions go to the engine), ``engine`` (the
         engine's host call, on its thread) and ``engine_wait`` (the main
         thread waiting for an engine result); its ``step`` enqueues the
-        update of phase C.
+        update of phase C. With ``sharding``, ``allreduce`` is the
+        average of the gradients and the loss over the ``dp`` axis (it
+        waits for the backward).
     """
 
     CHECKPOINT_NAME = 'last.ckpt'
@@ -141,10 +167,10 @@ class Trainer:
                  profile_steps: tuple = (2, 5)):
         if max_epochs is None and max_steps is None:
             raise ValueError('Set at least one of max_epochs/max_steps.')
-        if sharding is not None:
-            raise NotImplementedError(
-                'sharding (data parallelism) is not ported to '
-                'tfep_tpu_torch yet.')
+        if sharding is not None and not hasattr(sharding, 'group'):
+            raise TypeError('sharding must be a batch_sharding(mesh) of '
+                            'tfep_tpu_torch.parallel.sharding.')
+        self.sharding = sharding
         self.save_dir = save_dir
         self.max_epochs = max_epochs
         self.max_steps = max_steps
@@ -171,6 +197,7 @@ class Trainer:
         self._profile_marks: list = []
         self._on_card = False
         self._resume_snapshot = None
+        self._dataset = None
 
     # ------------------------------------------------------------------ #
     @property
@@ -199,13 +226,25 @@ class Trainer:
         # (which may include an in-memory System) once, not per step.
         self._map_config = _map_config_entries(tfep_map)
 
+        self._dataset = tfep_map.dataset
+        shuffle_seed = self.shuffle_seed
+        flow = tfep_map.flow
+        if self.sharding is not None:
+            from tfep_tpu_torch.parallel.distributed import (
+                host_frame_indices,
+            )
+            from tfep_tpu_torch.parallel.sharding import replicate
+            self._dataset = _FrameShard(self._dataset, host_frame_indices(
+                len(self._dataset), self.sharding.rank, self.sharding.size))
+            if self.shuffle and shuffle_seed is None:
+                shuffle_seed = _shared_seed(tfep_map.device)
+            replicate(flow, group=self.sharding.group)
         sampler = StatefulBatchSampler(
-            tfep_map.dataset, batch_size=tfep_map.batch_size,
+            self._dataset, batch_size=tfep_map.batch_size,
             shuffle=self.shuffle, drop_last=self.drop_last, trainer=self,
-            shuffle_seed=self.shuffle_seed)
+            shuffle_seed=shuffle_seed)
         n_batches = len(sampler)
 
-        flow = tfep_map.flow
         params = [p for p in flow.parameters() if p.requires_grad]
         optimizer = self.optimizer(params)
         if resume:
@@ -292,8 +331,28 @@ class Trainer:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if self.sharding is not None:
+                aux = dict(aux, loss=self._average_over_batch_axis(
+                    params, aux['loss']))
             optimizer.step()
             return _aux_to_host(aux)
+
+    def _average_over_batch_axis(self, params, loss):
+        """Average the gradients and the loss over the ``dp`` axis, one
+        all-reduce per dtype; returns the global loss."""
+        with self._timed('allreduce'):
+            loss = loss.detach().clone().reshape(1)
+            buckets = {}
+            for t in [p.grad for p in params] + [loss]:
+                buckets.setdefault(t.dtype, []).append(t)
+            for tensors in buckets.values():
+                flat = torch.cat([t.reshape(-1) for t in tensors])
+                dist.all_reduce(flat, group=self.sharding.group)
+                flat /= self.sharding.size
+                for t, part in zip(tensors, flat.split(
+                        [t.numel() for t in tensors])):
+                    t.copy_(part.view_as(t))
+            return loss.reshape(())
 
     # ------------------------------------------------------------------ #
     def _fit_pipelined(self, tfep_map, sampler, flow, optimizer, params,
@@ -359,6 +418,9 @@ class Trainer:
                 # An unread parameter gets zeros, as on the plain path.
                 for p, g in zip(params, grads):
                     p.grad = torch.zeros_like(p) if g is None else g
+                if self.sharding is not None:
+                    aux = dict(aux, loss=self._average_over_batch_axis(
+                        params, aux['loss']))
                 optimizer.step()
                 optimizer.zero_grad(set_to_none=True)
                 host_aux = _aux_to_host(aux)
@@ -524,7 +586,7 @@ class Trainer:
 
     def _read(self, tfep_map, indices):
         with self._timed('read'):
-            return tfep_map.host_tensors(tfep_map.dataset.get_batch(indices))
+            return tfep_map.host_tensors(self._dataset.get_batch(indices))
 
     def _device_batch(self, tfep_map, host_batch, step=None):
         with self._timed('to_device'):
@@ -559,11 +621,28 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _save_checkpoint(self, flow, optimizer, sampler, tfep_map=None,
                          pipeline_snapshot=None):
+        """Write ``last.ckpt``: the whole tensors of a tensor-parallel flow
+        (gathered, so every rank takes part), written by rank 0 alone."""
+        shards = _shards(flow)
+        flow_state = flow.state_dict()
+        optimizer_state = optimizer.state_dict()
+        if shards:
+            from tfep_tpu_torch.parallel.distributed import gather
+            from tfep_tpu_torch.parallel.sharding import full_state_dict
+            flow_state = full_state_dict(flow)
+            _map_shards(optimizer, optimizer_state, flow, shards,
+                        lambda t, dim, group, size: gather(t, dim, group))
+            if pipeline_snapshot is not None:
+                pipeline_snapshot = {
+                    name: gather(t, *shards[name][:2]) if name in shards
+                    else t for name, t in pipeline_snapshot.items()}
+        if self.sharding is not None and dist.get_rank() != 0:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         state = {
             'format_version': CHECKPOINT_FORMAT_VERSION,
-            'flow_state': flow.state_dict(),
-            'optimizer_state': optimizer.state_dict(),
+            'flow_state': flow_state,
+            'optimizer_state': optimizer_state,
             'global_step': self.global_step,
             'current_epoch': self.current_epoch,
             'sampler_state': sampler.state_dict(),
@@ -580,11 +659,23 @@ class Trainer:
 
     def _load_checkpoint(self, flow, optimizer, sampler):
         path = self.checkpoint_path
+        if self.sharding is not None:
+            # Rank 0 has finished writing before any rank looks.
+            dist.barrier()
         if path is None or not os.path.isfile(path):
             return
         state = _read_checkpoint(path)
+        # A tensor-parallel flow cuts the whole tensors to its shards.
         flow.load_state_dict(state['flow_state'])
-        optimizer.load_state_dict(state['optimizer_state'])
+        shards = _shards(flow)
+        optimizer_state = state['optimizer_state']
+        if shards:
+            from tfep_tpu_torch.parallel.sharding import local_slice
+            _map_shards(optimizer, optimizer_state, flow, shards,
+                        lambda t, dim, group, size: local_slice(
+                            t, dim, dist.get_rank(group), size),
+                        whole=True)
+        optimizer.load_state_dict(optimizer_state)
         self.global_step = state['global_step']
         self.current_epoch = state['current_epoch']
         sampler.load_state_dict(state['sampler_state'])
@@ -592,8 +683,71 @@ class Trainer:
         if snapshot is not None and self.engine_overlap:
             named = dict(flow.named_parameters())
             self._resume_snapshot = [
-                snapshot[name].to(named[name].device, named[name].dtype)
+                _shard_of(snapshot[name], shards.get(name)).to(
+                    named[name].device, named[name].dtype)
                 for name, p in named.items() if p.requires_grad]
+
+
+class _FrameShard:
+    """The frames ``indices`` of ``dataset`` as a dataset of their own;
+    batches keep the dataset's own sample indices."""
+
+    def __init__(self, dataset, indices):
+        self.dataset, self.indices = dataset, np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def get_batch(self, indices):
+        return self.dataset.get_batch(self.indices[np.asarray(indices)])
+
+
+def _shared_seed(device) -> int:
+    """A shuffle seed drawn on rank 0 and broadcast to every rank."""
+    seed = torch.tensor([np.random.SeedSequence().entropy % (2 ** 62)],
+                        dtype=torch.int64, device=device)
+    dist.broadcast(seed, src=0)
+    return int(seed.item())
+
+
+def _shards(flow) -> Dict[str, tuple]:
+    """``{parameter name: (split axis, group, group size)}`` of a
+    tensor-parallel flow's shards (empty for any other flow)."""
+    from tfep_tpu_torch.parallel.sharding import sharded_parameters
+    return {name: (dim, group, dist.get_world_size(group))
+            for name, (dim, group) in sharded_parameters(flow).items()}
+
+
+def _shard_of(tensor, shard):
+    """This rank's shard of a whole tensor (``shard``: as in
+    :func:`_shards`, ``None`` for a replicated one)."""
+    if shard is None:
+        return tensor
+    from tfep_tpu_torch.parallel.sharding import local_slice
+    dim, group, size = shard
+    return local_slice(tensor, dim, dist.get_rank(group), size)
+
+
+def _map_shards(optimizer, state, flow, shards, fn, whole=False):
+    """Replace, in the optimizer's ``state`` dict, each tensor that has the
+    shape of a sharded parameter of ``flow`` (its whole shape if
+    ``whole``) by ``fn(tensor, dim, group, size)``."""
+    names = {id(p): name for name, p in flow.named_parameters()
+             if name in shards}
+    for group, saved in zip(optimizer.param_groups, state['param_groups']):
+        for p, index in zip(group['params'], saved['params']):
+            name = names.get(id(p))
+            if name is None or index not in state['state']:
+                continue
+            dim, process_group, size = shards[name]
+            shape = list(p.shape)
+            if whole:
+                shape[dim] *= size
+            state['state'][index] = {
+                key: fn(value, dim, process_group, size)
+                if torch.is_tensor(value) and list(value.shape) == shape
+                else value
+                for key, value in state['state'][index].items()}
 
 
 class _Timer:

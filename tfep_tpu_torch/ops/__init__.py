@@ -16,3 +16,17 @@ class LaunchCounter:
     def reset(self):
         for name in self._kernels:
             setattr(self, name, 0)
+
+
+def fold_members(t, dim, n):
+    """``(n, B, ...)`` with the ``vmap`` axis at ``dim`` (``None``: shared,
+    broadcast to every member) as one contiguous ``(n * B, ...)``: the
+    members' rows as one batch of a kernel."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def unfold_members(t, n):
+    """The inverse of :func:`fold_members`: ``(n * B, ...)`` as
+    ``(n, B, ...)``."""
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])

@@ -63,6 +63,14 @@ are zero: the port passes only the tangents of ``a_i``, ``a_j`` and
 per-frame gradients plus the eleven weight gradients through both the
 primal and the tangent chains.
 
+Batching. JAX's ops batch under ``jax.vmap``; here each of the three
+Functions has a ``vmap`` rule. Where only the activations are mapped,
+K3 and K4 fold the members' frames into one launch. Where the weights
+are mapped (an ensemble of ``EGNNDynamics``), the kernels take one set
+of weights per launch, so the rule launches once per member; K5 always
+does, because it sums the weight gradients over every frame of a
+launch.
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version (:func:`pairwise_reference`, :func:`pairwise_jvp_reference`,
 :func:`pairwise_jvp_backward_reference`) only for CPU tensors. The kernels
@@ -83,7 +91,7 @@ from pathlib import Path
 
 import torch
 
-from tfep_tpu_torch.ops import LaunchCounter
+from tfep_tpu_torch.ops import LaunchCounter, fold_members, unfold_members
 
 __all__ = ['egnn_pairwise', 'egnn_pairwise_jvp', 'pairwise_reference',
            'pairwise_jvp_reference', 'pairwise_jvp_backward_reference',
@@ -616,32 +624,145 @@ def _check(args, n_tangents):
                          f'{a_i.device}.')
 
 
+#: Argument slots of the per-frame tensors (the 14 primals are a_i, a_j,
+#: dist, then the eleven weights; then the tangents, then the cotangents).
+_K3_FRAMES = (0, 1, 2)
+_K4_FRAMES = _K3_FRAMES + (14, 15, 16)
+_K5_FRAMES = _K4_FRAMES + (17, 18, 19, 20)
+_WEIGHT_SLOTS = range(3, 14)
+
+
+def _vmap_rule(function, info, in_dims, args, frame_slots, fold):
+    """The ``vmap`` rule of the three Functions: ``args`` end with
+    ``r_cutoff``, which must not be mapped.
+
+    With ``fold`` and the eleven weights shared by every member (only the
+    activations mapped), the members' frames are folded into one batch
+    and the kernel runs once. Otherwise (an ensemble: the weights are
+    per member) it runs once per member on that member's slices: K
+    launches.
+    """
+    if in_dims[-1] is not None:
+        raise ValueError('Under vmap r_cutoff must be shared by every '
+                         'member, not mapped.')
+    n = info.batch_size
+    if fold and all(in_dims[i] is None for i in _WEIGHT_SLOTS):
+        args = list(args)
+        for i in frame_slots:
+            args[i] = fold_members(args[i], in_dims[i], n)
+        outs = function.apply(*args)
+        return (tuple(unfold_members(o, n) for o in outs),
+                (0,) * len(outs))
+    members = []
+    for k in range(n):
+        members.append(function.apply(*(
+            t if d is None else t.select(d, k).contiguous()
+            for t, d in zip(args, in_dims))))
+    return (tuple(torch.stack(outs) for outs in zip(*members)),
+            (0,) * len(members[0]))
+
+
+class _EGNNPairwise(torch.autograd.Function):
+    """K3: the block's primal outputs ``(nm, mag)``, with no gradient.
+
+    Inputs: the 14 primals, then ``r_cutoff``. A Function so that it
+    batches under ``torch.func.vmap`` (:func:`_vmap_rule`): with shared
+    weights the members' frames fold into one launch, with per-member
+    weights it launches once per member.
+    """
+
+    @staticmethod
+    def forward(*args):
+        arrays, r_cutoff = args[:14], float(args[14])
+        if arrays[0].device.type == 'cpu':
+            return pairwise_reference(*arrays, r_cutoff)
+        return launch_k3(*arrays, r_cutoff=r_cutoff)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g_nm, g_mag):
+        raise RuntimeError('The fused EGNN block has no gradient of its '
+                           'plain forward (K3).')
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _vmap_rule(_EGNNPairwise, info, in_dims, args, _K3_FRAMES,
+                          fold=True)
+
+
 class _EGNNPairwiseJVP(torch.autograd.Function):
     """Port of ``_jvp_op``: K4 forward, K5 backward (first order).
 
     Inputs: the 14 primals, the tangents of ``a_i``, ``a_j``, ``dist``,
     then ``r_cutoff``. Outputs: ``(nm, mag, dnm, dmag)``.
+
+    In the ``forward`` + ``setup_context`` form, so it composes with
+    ``torch.func``. Under ``vmap`` K4 folds the members' frames into one
+    launch when the weights are shared and launches once per member when
+    they are not (an ensemble). The backward is a Function of its own
+    (:class:`_EGNNPairwiseJVPBackward`), so that under ``vmap(grad)`` K5
+    batches too.
     """
 
     @staticmethod
-    def forward(ctx, *args):
-        arrays, r_cutoff = args[:17], args[17]
-        ctx.save_for_backward(*arrays)
-        ctx.r_cutoff = r_cutoff
+    def forward(*args):
+        arrays, r_cutoff = args[:17], float(args[17])
         if arrays[0].device.type == 'cpu':
             return pairwise_jvp_reference(*arrays, r_cutoff)
         return launch_k4(*arrays, r_cutoff=r_cutoff)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:17])
+        ctx.r_cutoff = inputs[17]
+
+    @staticmethod
     def backward(ctx, g_nm, g_mag, g_dnm, g_dmag):
-        arrays = ctx.saved_tensors
-        cots = [g.contiguous() for g in (g_nm, g_mag, g_dnm, g_dmag)]
-        if arrays[0].device.type == 'cpu':
-            grads = pairwise_jvp_backward_reference(*arrays, ctx.r_cutoff,
-                                                    *cots)
-        else:
-            grads = launch_k5(*arrays, *cots, r_cutoff=ctx.r_cutoff)
+        grads = _EGNNPairwiseJVPBackward.apply(
+            *ctx.saved_tensors, g_nm, g_mag, g_dnm, g_dmag, ctx.r_cutoff)
         return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _vmap_rule(_EGNNPairwiseJVP, info, in_dims, args, _K4_FRAMES,
+                          fold=True)
+
+
+class _EGNNPairwiseJVPBackward(torch.autograd.Function):
+    """K5: the 17 gradients of K4's inputs for the cotangents of
+    ``(nm, mag, dnm, dmag)``.
+
+    Under ``vmap`` it launches once per member, also where the weights
+    are shared: each member needs the weight gradients of its own frames,
+    and K5 sums them over every frame of a launch. It has no derivative:
+    differentiating the block twice raises.
+    """
+
+    @staticmethod
+    def forward(*args):
+        arrays, r_cutoff = args[:17], float(args[21])
+        cots = [g.contiguous() for g in args[17:21]]
+        if arrays[0].device.type == 'cpu':
+            return tuple(pairwise_jvp_backward_reference(*arrays, r_cutoff,
+                                                         *cots))
+        return tuple(launch_k5(*arrays, *cots, r_cutoff=r_cutoff))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError('The fused EGNN block (K4/K5) has no second '
+                           'derivative.')
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _vmap_rule(_EGNNPairwiseJVPBackward, info, in_dims, args,
+                          _K5_FRAMES, fold=False)
 
 
 def egnn_pairwise_jvp(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
@@ -652,7 +773,10 @@ def egnn_pairwise_jvp(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
     Differentiable in reverse mode with respect to every argument. On a
     CUDA tensor it launches the kernels; on a CPU tensor it runs
     :func:`pairwise_jvp_reference` and, backward,
-    :func:`pairwise_jvp_backward_reference`.
+    :func:`pairwise_jvp_backward_reference`. Composes with
+    ``torch.func.vmap`` and ``vmap(grad)``: K4 runs once on the members'
+    folded frames when the weights are shared and once per member when
+    they are mapped (an ensemble); K5 runs once per member.
 
     Parameters
     ----------
@@ -668,6 +792,7 @@ def egnn_pairwise_jvp(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
     da_i, da_j, dd : torch.Tensor
         Tangents of ``a_i``, ``a_j``, ``dist``.
     r_cutoff : float
+        Shared by every member under ``vmap`` (a mapped one raises).
 
     Returns
     -------
@@ -677,7 +802,7 @@ def egnn_pairwise_jvp(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
     args = (a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2, w_att,
             b_att, w_x1, b_x1, w_x2, da_i, da_j, dd)
     _check(args, 3)
-    return _EGNNPairwiseJVP.apply(*args, float(r_cutoff))
+    return _EGNNPairwiseJVP.apply(*args, r_cutoff)
 
 
 def egnn_pairwise(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
@@ -687,7 +812,9 @@ def egnn_pairwise(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
 
     Arguments as :func:`egnn_pairwise_jvp`, without the tangents. Raises
     if gradients are enabled and an argument requires one: the gradient
-    of the block exists only through :func:`egnn_pairwise_jvp`.
+    of the block exists only through :func:`egnn_pairwise_jvp`. Under
+    ``torch.func.vmap`` K3 runs once on the folded frames when the weights
+    are shared and once per member when they are mapped.
     """
     args = (a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2, w_att,
             b_att, w_x1, b_x1, w_x2)
@@ -697,6 +824,4 @@ def egnn_pairwise(a_i, a_j, dist, mu, log_gammas, w_e, b1, w_m2, b_m2,
             'The fused EGNN block has no gradient of its plain forward: '
             'differentiate forward_and_jvp (the CNF pattern), use '
             "pairwise='dense', or call under torch.no_grad().")
-    if a_i.device.type == 'cpu':
-        return pairwise_reference(*args, r_cutoff)
-    return launch_k3(*args, r_cutoff=float(r_cutoff))
+    return _EGNNPairwise.apply(*args, r_cutoff)

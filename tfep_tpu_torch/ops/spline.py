@@ -66,7 +66,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tfep_tpu_torch.ops import LaunchCounter
+from tfep_tpu_torch.ops import LaunchCounter, fold_members, unfold_members
 
 __all__ = ['fused_spline', 'fused_spline_reference', 'LAUNCHES', 'softplus',
            'spline_offset', 'launch_forward', 'launch_backward',
@@ -583,10 +583,11 @@ class _FusedSpline(torch.autograd.Function):
     def vmap(info, in_dims, x, params, x0, xf, y0, yf, *config):
         _shared_bounds(in_dims[2:6])
         n = info.batch_size
-        x, params = (_fold(t, d, n) for t, d in zip((x, params), in_dims))
+        x, params = (fold_members(t, d, n)
+                     for t, d in zip((x, params), in_dims))
         _check_offsets(params)
         y, dl = _FusedSpline.apply(x, params, x0, xf, y0, yf, *config)
-        return (_unfold(y, n), _unfold(dl, n)), (0, 0)
+        return (unfold_members(y, n), unfold_members(dl, n)), (0, 0)
 
 
 class _SplineBackward(torch.autograd.Function):
@@ -618,12 +619,12 @@ class _SplineBackward(torch.autograd.Function):
         _shared_bounds(in_dims[2:6])
         n = info.batch_size
         x, params, gy, gl = (
-            _fold(t, d, n) for t, d in zip((x, params, gy, gl),
+            fold_members(t, d, n) for t, d in zip((x, params, gy, gl),
                                            in_dims[:2] + in_dims[6:8]))
         _check_offsets(params)
         gx, gp = _SplineBackward.apply(x, params, x0, xf, y0, yf, gy, gl,
                                        *config)
-        return (_unfold(gx, n), _unfold(gp, n)), (0, 0)
+        return (unfold_members(gx, n), unfold_members(gp, n)), (0, 0)
 
 
 def _shared_bounds(bound_dims):
@@ -631,17 +632,6 @@ def _shared_bounds(bound_dims):
         raise ValueError('Under vmap the spline bounds x0, xf, y0, yf must '
                          'be shared by every member (a buffer), not '
                          'mapped.')
-
-
-def _fold(t, dim, n):
-    """``(n, B, ...)`` with the mapped axis at ``dim`` (``None``: shared,
-    broadcast to every member) as one contiguous ``(n * B, ...)``."""
-    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
-    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
-
-
-def _unfold(t, n):
-    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
 
 
 def _check_offsets(params):

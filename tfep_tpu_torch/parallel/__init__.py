@@ -1,7 +1,7 @@
-"""Execution runtime: strategies, CLI tools, launchers.
+"""Execution runtime: strategies, CLI tools, launchers, multi-process
+training (process groups, device-mesh sharding).
 
-Port of ``tfep_tpu/parallel``. Not ported yet: ``sharding`` and
-``distributed`` (data parallelism over the frames axis).
+Port of ``tfep_tpu/parallel``.
 """
 
 from tfep_tpu_torch.parallel.strategies import (  # noqa: F401
@@ -14,3 +14,4 @@ from tfep_tpu_torch.parallel.cli import (  # noqa: F401
 from tfep_tpu_torch.parallel.launcher import (  # noqa: F401
     Launcher, SRunTool, SRunLauncher,
 )
+from tfep_tpu_torch.parallel import distributed, sharding  # noqa: F401
