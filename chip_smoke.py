@@ -163,6 +163,17 @@ Phases, each of which passes or exits non-zero:
    ``ensemble_map`` and its gradient through ``make_ensemble_train_step``
    against each field alone and the plain (dense) version, with the
    K3/K4/K5 launches (one per member and layer).
+16. The examples (``tfep_tpu_torch/examples/``), in float64: first K1 and
+   K2 in float64 against their plain version at the solvated example's
+   shape (B=512, its 36 whitened features, K=8, x on [-8, 8]); then each
+   of the seven examples of the JAX package, at its own size, through its
+   ``run`` and ``check(statistical=True)`` in this process (the engine
+   example spawns its pool of 4), and the port's ``distributed_tfep`` as
+   a subprocess (2 gloo ranks sharing the card). Each prints its Δf, its
+   interval, the analytic Δf and the margin that must bracket it, its
+   steps, its wall seconds and its K1/K2 launches: more than 0 for the
+   two examples with spline transformers (solvated, mixed), 0 for the
+   others.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.
@@ -4093,13 +4104,237 @@ def parallel_phase(device, smi):
                 launches=launches)
 
 
+# Phase 16: the examples, each at its JAX example's size.
+EXAMPLES = ('toy_gaussian_tfep', 'multimap_tfep_triatomic',
+            'solvated_preflow_tfep', 'multimap_tfep_mixed', 'ensemble_tfep',
+            'engine_in_the_loop_tfep', 'cnf_tfep')
+# The examples whose maps have spline transformers, so run K1/K2 (the
+# others are affine MAFs or the CNF).
+SPLINE_EXAMPLES = ('solvated_preflow_tfep', 'multimap_tfep_mixed')
+# K1/K2 in float64 at the solvated example's shape.
+F64_B, F64_F, F64_BOUND = 512, 36, 8.0
+# Kernel against plain version in float64, relative to max(1, scale):
+# the tolerances the port's tests hold values and gradients to. float64
+# exp, log and division are correctly rounded or within an ulp, so the
+# fifty-odd dependent operations leave errors near 1e-14.
+F64_FORWARD_TOL = 1e-10
+F64_BACKWARD_TOL = 1e-9
+DISTRIBUTED_TIMEOUT_S = 600
+# The example that runs in a process of its own, beside the others.
+BESIDE = 'cnf_tfep'
+EXAMPLE_TIMEOUT_S = 1000
+
+
+def f64_spline_inputs(device, seed):
+    """Inputs at the solvated example's shape, float64: x on [-8, 8]
+    (5% of it beyond the bounds, in the linear tails), kept 1e-6 away
+    from every knot; parameters as a spline MAF's conditioner gives them
+    early in training."""
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.float64
+    bound = F64_BOUND * torch.ones(F64_F, dtype=dt)
+    x = -F64_BOUND + 2 * F64_BOUND * torch.rand(F64_B, F64_F, generator=g,
+                                                dtype=dt)
+    outside = torch.rand(F64_B, F64_F, generator=g) < 0.05
+    x = torch.where(outside, x.sign() * (F64_BOUND + x.abs() / 4), x)
+    params = 0.5 * torch.randn(F64_B, (3 * K + 1) * F64_F, generator=g,
+                               dtype=dt)
+    width = 2 * F64_BOUND
+    knots = -bound + torch.cumsum(torch.softmax(
+        params.reshape(F64_B, 3 * K + 1, F64_F)[:, :K], dim=1)
+        * (width - K * 1e-4) + 1e-4, dim=1)
+    knots = torch.cat([-bound.expand(F64_B, 1, F64_F), knots], dim=1)
+    near = (x[:, None] - knots).abs().min(dim=1).values < 1e-6
+    x = torch.where(near, x + 3e-6, x)
+    cast = dict(dtype=dt, device=device)
+    return (x.to(**cast), params.to(**cast), (-bound).to(**cast),
+            bound.to(**cast), (-bound).to(**cast), bound.to(**cast))
+
+
+def f64_kernel_phase(device):
+    """K1 and K2 in float64 against the plain version at the solvated
+    example's shape; returns the errors."""
+    from tfep_tpu_torch.ops import spline as fs
+    x, params, *bounds = f64_spline_inputs(device, 4)
+    g = torch.Generator().manual_seed(5)
+    gy, gl = (torch.randn(F64_B, F64_F, generator=g, dtype=torch.float64)
+              .to(device) for _ in range(2))
+    outs = {}
+    for name, fn in (('kernel', fs.fused_spline),
+                     ('plain', fs.fused_spline_reference)):
+        xi = x.clone().requires_grad_()
+        pi = params.clone().requires_grad_()
+        y, dl = fn(xi, pi, *bounds, K)
+        gx, gp = torch.autograd.grad((y, dl), (xi, pi), (gy, gl))
+        outs[name] = [t.detach() for t in (y, dl, gx, gp)]
+    torch.cuda.synchronize()
+    errors = {}
+    for i, label in enumerate(('y', 'dl', 'grad_x', 'grad_params')):
+        kern, plain = outs['kernel'][i], outs['plain'][i]
+        if kern.dtype != torch.float64 or not torch.isfinite(kern).all():
+            raise AssertionError(f'float64 {label}: not finite float64')
+        err, rel = rel_err(kern, plain)
+        tol = F64_FORWARD_TOL if i < 2 else F64_BACKWARD_TOL
+        say(f'  float64 {label:11s} max|kernel-plain| = {err:.3e} '
+            f'(relative to scale {rel:.3e}, tolerance {tol:g})')
+        if not rel <= tol:
+            raise AssertionError(f'float64 {label} disagrees')
+        key = 'forward' if i < 2 else 'backward'
+        errors[key] = max(errors.get(key, 0.0), err)
+    return errors
+
+
+def _example_line(name, results, seconds, launches):
+    if results.get('dfs') is not None:
+        estimate = (f'df per member {np.round(results["dfs"], 4).tolist()}'
+                    f' (spread {results["spread"]:.4f})')
+    else:
+        low, high = results['ci']
+        estimate = (f'df {results["df"]:.4f} kT, CI [{low:.4f}, '
+                    f'{high:.4f}]')
+    return (f'  {name}: {estimate}, analytic {results["df_analytic"]:.4f} '
+            f'kT, margin {results["margin"]:g}; {results["steps"]} steps; '
+            f'training {results["wall_s"]:.1f} s, run and check '
+            f'{seconds:.1f} s; K1/K2 launches {launches[0]}/{launches[1]}')
+
+
+def distributed_example(smi):
+    """The port's distributed example as a subprocess: 2 gloo ranks on the
+    one card. Returns its figures, read from its output."""
+    import os
+    import re
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    env.pop('DIST_TFEP_DEVICE', None)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-m', 'tfep_tpu_torch.examples.distributed_tfep'],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=DISTRIBUTED_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0 or 'DISTRIBUTED TFEP OK' not in out.stdout:
+        raise AssertionError('distributed_tfep failed:\n'
+                             + out.stdout[-3000:] + out.stderr[-3000:])
+    number = r'(-?[0-9.]+)'
+    df = re.search(r'multimap TFEP df = ' + number + r' kT   CI=\['
+                   + number + ', ' + number + r'\]', out.stdout)
+    analytic = re.search(r'analytic df\s+= ' + number, out.stdout)
+    steps = re.search(r'steps: (\d+) \(walls: \[([^\]]*)\]s\)',
+                      out.stdout)
+    results = dict(df=float(df.group(1)),
+                   ci=(float(df.group(2)), float(df.group(3))),
+                   df_analytic=float(analytic.group(1)), margin=0.15,
+                   steps=int(steps.group(1)),
+                   wall_s=max(float(w) for w in steps.group(2).split(',')))
+    say(_example_line('distributed_tfep (2 ranks)', results, seconds, (0, 0))
+        + f' [{smi}]')
+    return dict(results, seconds=seconds)
+
+
+def run_example(name, device, workdir=None):
+    """One example's ``run`` and ``check(statistical=True)``, with its
+    K1/K2 launches (the counts set to 0 just before); returns its
+    figures."""
+    import importlib
+    from tfep_tpu_torch.ops import spline as fs
+    module = importlib.import_module(f'tfep_tpu_torch.examples.{name}')
+    fs.LAUNCHES.reset()
+    start = time.perf_counter()
+    results = module.run(device, workdir)
+    module.check(results, statistical=True)
+    seconds = time.perf_counter() - start
+    launches = [fs.LAUNCHES.forward, fs.LAUNCHES.backward]
+    row = dict(df=results.get('df'), ci=results.get('ci'),
+               df_analytic=float(results['df_analytic']),
+               margin=results['margin'], steps=results['steps'],
+               wall_s=results['wall_s'], seconds=seconds, launches=launches)
+    for key in ('dfs', 'spread', 'com_drift', 'var_mapped', 'var_identity',
+                'eval_s'):
+        if key in results:
+            row[key] = np.asarray(results[key]).tolist()
+    return row
+
+
+def example_process(name, workdir):
+    """``--example NAME WORKDIR``: :func:`run_example` on the card in a
+    process of its own; its figures go to ``WORKDIR/NAME.json``."""
+    import os
+    row = run_example(name, torch.device('cuda'), workdir)
+    with open(os.path.join(workdir, f'{name}.json'), 'w') as f:
+        json.dump(row, f)
+
+
+def _check_launches(name, launches):
+    if name in SPLINE_EXAMPLES:
+        if not (launches[0] > 0 and launches[1] > 0):
+            raise AssertionError(f'{name}: K1/K2 never launched')
+    elif tuple(launches) != (0, 0):
+        raise AssertionError(f'{name}: K1/K2 launched {launches}')
+
+
+def examples_phase(device, smi):
+    """Phase 16: K1/K2 in float64, then every example on the card. The
+    CNF example (host-bound, the longest) runs in a process of its own
+    beside the others."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    errors = f64_kernel_phase(device)
+    summary = {}
+    total = [0, 0]
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_examples_')
+    log_path = os.path.join(workdir, f'{BESIDE}.log')
+    with open(log_path, 'w') as log:
+        beside = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--example', BESIDE,
+             workdir], stdout=log, stderr=subprocess.STDOUT)
+    try:
+        for name in EXAMPLES:
+            if name == BESIDE:
+                continue
+            row = run_example(name, device)
+            say(_example_line(name, row, row['seconds'], row['launches'])
+                + f' [{smi}]')
+            _check_launches(name, row['launches'])
+            total = [total[0] + row['launches'][0],
+                     total[1] + row['launches'][1]]
+            summary[name] = row
+            torch.cuda.empty_cache()
+        summary['distributed_tfep'] = distributed_example(smi)
+        beside.wait(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        if beside.poll() is None:
+            beside.kill()
+            beside.wait()
+    if beside.returncode != 0:
+        with open(log_path) as f:
+            raise AssertionError(f'{BESIDE} failed:\n{f.read()[-4000:]}')
+    with open(os.path.join(workdir, f'{BESIDE}.json')) as f:
+        row = json.load(f)
+    say(_example_line(BESIDE + ' (own process)', row, row['seconds'],
+                      row['launches']) + f' [{smi}]')
+    _check_launches(BESIDE, row['launches'])
+    summary[BESIDE] = row
+    seconds = time.perf_counter() - t0
+    say(f'  phase [16] took {seconds:.1f} s')
+    return dict(examples=summary, errors=errors, launches=tuple(total),
+                seconds=seconds)
+
+
 def main():
     import threading
+
+    started = time.perf_counter()
+
+    def stage(*args):
+        say(*args)
+        say(f'  (at {time.perf_counter() - started:.1f} s of the script)')
 
     import tfep_tpu_torch  # noqa: F401  (fails outside a checkout)
     from tfep_tpu_torch.ops import egnn
 
-    say('[1] card')
+    stage('[1] card')
     smi = card_phase()
     device = torch.device('cuda')
     # nvcc builds the EGNN kernels while the Triton phases run.
@@ -4108,17 +4343,17 @@ def main():
         egnn.build)))
     build_thread.start()
 
-    say('[2] kernels against their plain version (float32, bench shape)')
+    stage('[2] kernels against their plain version (float32, bench shape)')
     t0 = time.perf_counter()
     errors = kernel_phase(device)
     say(f'  built and checked in {time.perf_counter() - t0:.1f} s')
     kernel_resources(device)
 
-    say('[3] the slice: spline-MAF training step at the bench config')
+    stage('[3] the slice: spline-MAF training step at the bench config')
     flow, frames = build_slice(device)
     launches, train_step = slice_phase(flow, frames, N_STEPS)
 
-    say('[4] times')
+    stage('[4] times')
     rows, step = timing_phase(device, flow, frames, train_step, smi)
     # Phase 14 sets its bf16 step beside this float32 one.
     maf_handoff = dict(step_ms=step['step_ms'], kinds={})
@@ -4127,7 +4362,7 @@ def main():
     del flow, frames, train_step
     torch.cuda.empty_cache()
 
-    say('[5] EGNN kernels K3/K4/K5 against their plain version (float32)')
+    stage('[5] EGNN kernels K3/K4/K5 against their plain version (float32)')
     build_thread.join()
     if not built or isinstance(built[0], BaseException):
         raise RuntimeError('building the EGNN kernels failed') from (
@@ -4140,7 +4375,7 @@ def main():
             say('   ', line.strip())
     egnn_errors = egnn_kernel_phase(device)
 
-    say('[6] the CNF slice: cnf_bench training step, pairwise=fused')
+    stage('[6] the CNF slice: cnf_bench training step, pairwise=fused')
     cnf, cnf_frames = build_cnf(device)
     cnf_launches, cnf_step = cnf_phase(cnf, cnf_frames)
     # Phase 11 holds the CNF map against these weights and frames.
@@ -4148,7 +4383,7 @@ def main():
                               for k, v in cnf.state_dict().items()},
                        frames=cnf_frames.cpu())
 
-    say('[7] CNF times')
+    stage('[7] CNF times')
     egnn_rows = egnn_timing_phase(device, smi)
     cnf_times = cnf_timing_phase(cnf, cnf_frames, cnf_step, smi)
     cnf_handoff.update(step_ms=cnf_times['step_ms'], busy_ms=profile_phase(
@@ -4156,15 +4391,15 @@ def main():
     del cnf, cnf_frames, cnf_step
     torch.cuda.empty_cache()
 
-    say('[8] the Cartesian reference-frame slice: the MAF inside the '
-        'CartesianMAFMap stack, K1/K2 at F=90')
+    stage('[8] the Cartesian reference-frame slice: the MAF inside the '
+          'CartesianMAFMap stack, K1/K2 at F=90')
     handoff = {}
     cart = cartesian_phase(device, smi, handoff)
     handoff.update(step_ms=cart['step_ms'])
     torch.cuda.empty_cache()
 
-    say('[9] the entry point: the port\'s CartesianMAFMap on phase 8\'s '
-        'configuration, trained through Trainer.fit')
+    stage('[9] the entry point: the port\'s CartesianMAFMap on phase 8\'s '
+          'configuration, trained through Trainer.fit')
     app = app_phase(device, smi, handoff)
     # Phase 13 trains the same map from the same weights against an engine.
     engine_handoff = dict(
@@ -4174,39 +4409,46 @@ def main():
     del handoff
     torch.cuda.empty_cache()
 
-    say('[10] the flagship map: the port\'s MixedMAFMap at bench_mixed_jax\'s '
-        'configuration, trained through Trainer.fit; K1/K2 at F=30')
+    stage('[10] the flagship map: the port\'s MixedMAFMap at '
+          'bench_mixed_jax\'s configuration, trained through Trainer.fit; '
+          'K1/K2 at F=30')
     mixed = mixed_phase(device, smi)
     torch.cuda.empty_cache()
 
-    say('[11] the CNF map: the port\'s ContinuousEGNNMap at cnf_bench\'s '
-        'configuration, trained through Trainer.fit')
+    stage('[11] the CNF map: the port\'s ContinuousEGNNMap at cnf_bench\'s '
+          'configuration, trained through Trainer.fit')
     cnf_map = cnf_map_phase(device, smi, cnf_handoff)
     torch.cuda.empty_cache()
 
-    say('[12] from a trajectory file to Δf: phase [10]\'s configuration '
-        'written as XTC + PDB, trained lazily from the file, estimated on '
-        'the card')
+    stage('[12] from a trajectory file to Δf: phase [10]\'s configuration '
+          'written as XTC + PDB, trained lazily from the file, estimated on '
+          'the card')
     file_map = file_phase(device, smi, mixed)
     torch.cuda.empty_cache()
 
-    say('[13] the potentials bridge: phase [9]\'s map trained against a host '
-        'engine through the autograd bridge, plainly and with '
-        'engine_overlap=True')
+    stage('[13] the potentials bridge: phase [9]\'s map trained against a '
+          'host engine through the autograd bridge, plainly and with '
+          'engine_overlap=True')
     engine = engine_phase(device, smi, engine_handoff)
     torch.cuda.empty_cache()
 
-    say('[14] ensembles and bf16 products: ensemble_bench\'s configuration '
-        'trained as K vmapped members, K1/K2 on the folded rows; phase '
-        '[3]\'s MAF with compute_dtype=\'bfloat16\'')
+    stage('[14] ensembles and bf16 products: ensemble_bench\'s configuration '
+          'trained as K vmapped members, K1/K2 on the folded rows; phase '
+          '[3]\'s MAF with compute_dtype=\'bfloat16\'')
     ensemble = ensemble_phase(device, smi)
     bf16 = bf16_phase(device, smi, maf_handoff)
     torch.cuda.empty_cache()
 
-    say('[15] multi-process training: Trainer(sharding=...) on one rank '
-        'over NCCL; two ranks on the one card over gloo (data, tensor and '
-        'ensemble parallelism); the fused EGNN field as a vmapped ensemble')
+    stage('[15] multi-process training: Trainer(sharding=...) on one rank '
+          'over NCCL; two ranks on the one card over gloo (data, tensor and '
+          'ensemble parallelism); the fused EGNN field as a vmapped ensemble')
     parallel = parallel_phase(device, smi)
+    torch.cuda.empty_cache()
+
+    stage('[16] the examples in float64: K1/K2 at the solvated example\'s '
+          'shape, then each example at its JAX original\'s size against its '
+          'analytic df')
+    examples = examples_phase(device, smi)
 
     tpu = 'tfep_tpu/ops/pallas/spline.py'
     replaces = {'spline_forward': f'{tpu}:82 (_forward_kernel, launched '
@@ -4233,10 +4475,12 @@ def main():
                 'ensemble': ensemble['launches'][i],
                 'maf_bf16': bf16['launches'][i],
                 'parallel_nccl': parallel['nccl']['launches'][i],
-                'parallel_two_ranks': parallel['ranks']['launches'][i]},
+                'parallel_two_ranks': parallel['ranks']['launches'][i],
+                'examples': examples['launches'][i]},
             'max_abs_err': max(errors[which], cart['errors'][which],
                                mixed['errors'][which],
-                               ensemble['errors'][which]),
+                               ensemble['errors'][which],
+                               examples['errors'][which]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': None})
@@ -4287,7 +4531,9 @@ def main():
                                  if k != 'errors'},
                     'maf_bf16': bf16,
                     'parallel': parallel,
+                    'examples': examples,
                     'card': smi}))
+    say(f'whole script: {time.perf_counter() - started:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4298,5 +4544,7 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--parallel-rank']:
         parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                       sys.argv[5])
+    elif sys.argv[1:2] == ['--example']:
+        example_process(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -261,3 +261,45 @@ def test_potentials_import_without_engines_cuda_or_jax():
                             env={**os.environ, 'PYTHONPATH': str(ROOT)})
     assert result.returncode == 0, result.stderr
     assert result.stdout.strip() == 'ok'
+
+
+EXAMPLE_MODULES = sorted(
+    p.stem for p in (ROOT / 'tfep_tpu_torch' / 'examples').glob('*.py')
+    if not p.stem.startswith('_'))
+
+
+def test_examples_import_no_jax_and_run_nothing():
+    """A process that imports every example of the port loads neither JAX
+    nor ``tfep_tpu``, and nothing runs at import (no card is touched)."""
+    import os
+    import subprocess
+    import sys
+    assert len(EXAMPLE_MODULES) == 8, EXAMPLE_MODULES
+    script = (
+        'import sys, time, torch\n'
+        'start = time.perf_counter()\n'
+        + ''.join(f'import tfep_tpu_torch.examples.{name}\n'
+                  for name in EXAMPLE_MODULES)
+        + 'assert not torch.cuda.is_initialized()\n'
+          'assert not any(m == "jax" or m.startswith("jax.")\n'
+          '               or m.split(".")[0] == "tfep_tpu"\n'
+          '               for m in sys.modules)\n'
+          'assert time.perf_counter() - start < 30\n'
+          'print("ok")\n')
+    result = subprocess.run([sys.executable, '-c', script], cwd=ROOT,
+                            capture_output=True, text=True, timeout=120,
+                            env={**os.environ, 'PYTHONPATH': str(ROOT)})
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == 'ok'
+
+
+@pytest.mark.parametrize('name', [n for n in EXAMPLE_MODULES
+                                  if n != 'distributed_tfep'])
+def test_examples_default_to_the_card(name, monkeypatch):
+    """Without a card and without ``device``, an example's run raises
+    before it does any work: there is no fallback to the CPU."""
+    import importlib
+    module = importlib.import_module(f'tfep_tpu_torch.examples.{name}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='No CUDA device'):
+        module.run()

@@ -10,9 +10,16 @@ shape ``(batch,)``.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-__all__ = ['Flow']
+__all__ = ['Flow', 'default_float']
+
+
+def default_float() -> torch.dtype:
+    """Canonical float dtype: torch's default (float32 unless changed with
+    ``torch.set_default_dtype``)."""
+    return torch.get_default_dtype()
 
 
 class Flow(nn.Module):

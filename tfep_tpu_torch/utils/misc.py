@@ -23,6 +23,7 @@ __all__ = [
     'ensure_int_array', 'remove_and_shift_sorted_indices', 'temporary_cd',
     'clear_directory', 'energies_array_to_numpy', 'forces_array_to_numpy',
     'energies_array_to_tensor', 'forces_array_to_tensor',
+    'ensure_tensor_sequence',
 ]
 
 
@@ -64,6 +65,18 @@ def ensure_int_array(x: Union[int, Sequence, np.ndarray, None],
     if arr.ndim == 0:
         arr = arr[None]
     return arr.astype(np.int64)
+
+
+def ensure_tensor_sequence(x, dtype=None, device=None
+                           ) -> Optional[torch.Tensor]:
+    """Coerce a scalar, sequence, array or tensor to a 1D tensor, a scalar
+    lifted to shape ``(1,)``; ``None`` passes through."""
+    if x is None:
+        return None
+    tensor = torch.as_tensor(x, dtype=dtype, device=device)
+    if tensor.ndim == 0:
+        tensor = tensor.reshape(1)
+    return tensor
 
 
 def remove_and_shift_sorted_indices(
