@@ -35,6 +35,7 @@ from tfep_tpu_torch.io.traj import System, TrajectoryDataset
 from tfep_tpu_torch.loss import boltzmann_kl_div_loss
 from tfep_tpu_torch.nn.flows import PartialFlow
 from tfep_tpu_torch.units import Quantity, ureg
+from tfep_tpu_torch.utils import tracing
 from tfep_tpu_torch.utils.misc import (
     atom_to_flattened_indices, ensure_int_array,
     remove_and_shift_sorted_indices,
@@ -680,6 +681,13 @@ class TFEPMapBase:
         Stores (and returns) per-sample ``potential`` and ``log_det_J``
         (with the sample indices) under ``eval/step-{step_idx}.npz``: the
         work values of the flow as trained for ``step_idx`` steps.
+
+        With the span recorder on (:mod:`tfep_tpu_torch.utils.tracing`),
+        each batch is an ``eval.batch`` span (its step id the batch's
+        number) holding ``eval.read`` (``get_batch`` and the host
+        tensors), ``eval.to_device``, ``eval.forward`` and ``eval.to_host``
+        (the copies of the work values back to the host), and the pass
+        ends in ``eval.log`` (the concatenation and the logger).
         """
         if flow is None:
             flow = self.flow
@@ -689,15 +697,23 @@ class TFEPMapBase:
         collected: Dict[str, list] = {}
         n = len(self.dataset)
         for start in range(0, n, batch_size):
-            indices = np.arange(start, min(start + batch_size, n))
-            batch = self.batch_to_device(self.dataset.get_batch(indices))
-            aux = self.training_step_fn(flow, batch)[1]
-            for key in _EVAL_KEYS:
-                collected.setdefault(key, []).append(
-                    aux[key].detach().cpu().numpy())
+            tracing.set_step(start // batch_size)
+            with tracing.span('eval.batch'):
+                with tracing.span('eval.read'):
+                    indices = np.arange(start, min(start + batch_size, n))
+                    batch = self.host_tensors(self.dataset.get_batch(indices))
+                with tracing.span('eval.to_device'):
+                    batch = self.batch_to_device(batch)
+                with tracing.span('eval.forward'):
+                    aux = self.training_step_fn(flow, batch)[1]
+                with tracing.span('eval.to_host'):
+                    for key in _EVAL_KEYS:
+                        collected.setdefault(key, []).append(
+                            aux[key].detach().cpu().numpy())
 
-        tensors = {k: np.concatenate(v) for k, v in collected.items()}
-        logger = self.tfep_logger
-        if logger is not None:
-            logger.save_eval_tensors(tensors, step_idx=step_idx)
+        with tracing.span('eval.log'):
+            tensors = {k: np.concatenate(v) for k, v in collected.items()}
+            logger = self.tfep_logger
+            if logger is not None:
+                logger.save_eval_tensors(tensors, step_idx=step_idx)
         return tensors

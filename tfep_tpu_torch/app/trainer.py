@@ -34,6 +34,7 @@ the whole tensors.
 from __future__ import annotations
 
 import importlib
+import json
 import os
 import pickle
 import time
@@ -45,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from tfep_tpu_torch.io.sampler import StatefulBatchSampler
+from tfep_tpu_torch.utils import tracing
 
 __all__ = ['Trainer', 'load_map_from_checkpoint', 'default_optimizer']
 
@@ -124,10 +126,22 @@ class Trainer:
         :class:`~tfep_tpu_torch.potentials.EnginePotential` target.
     profile_dir : str, optional
         Trace steps ``profile_steps`` with ``torch.profiler`` and write the
-        trace to ``profile_dir/trace.json`` (Chrome/Perfetto format). The
-        profile stays in :attr:`profile`, and each profiled step's time
-        (from one step's start to the next's, on the card's clock when
-        the map is on a card) in :attr:`profiled_step_times`.
+        trace to ``profile_dir/trace.json`` (Chrome/Perfetto format). Over
+        the same steps the port's span recorder
+        (:mod:`tfep_tpu_torch.utils.tracing`) is on, and its spans join
+        the trace as complete (``X``) events on the trace's time base, in
+        the rows of the threads that opened them, so that Perfetto shows
+        them beside the device's rows. The spans: the names of
+        :attr:`host_seconds`; ``read_wait`` (the main thread waiting for
+        the prefetch thread's batch); ``step.forward``, ``step.backward``
+        and ``step.optimizer`` inside ``step``; the layers'
+        ``zmatrix.to_internal``, ``zmatrix.to_cartesian``,
+        ``maf.conditioner``, ``maf.transformer`` and each one's
+        ``.backward`` (on the thread that runs the backward), and
+        ``ode.step``. The profile stays in :attr:`profile`, and each
+        profiled step's time (from one step's start to the next's, on the
+        card's clock when the map is on a card) in
+        :attr:`profiled_step_times`.
     profile_steps : (int, int), optional
         Half-open ``[start, stop)`` global-step window to trace.
 
@@ -276,6 +290,7 @@ class Trainer:
             epoch_idx = self.current_epoch
             for host_batch in self._epoch_batches(tfep_map, sampler):
                 batch_idx = self.global_step % n_batches
+                tracing.set_step(self.global_step)
                 batch = self._device_batch(tfep_map, host_batch,
                                            step=self.global_step)
 
@@ -287,7 +302,8 @@ class Trainer:
                 # device runs this one.
                 if pending is not None:
                     self._consume_aux(tfep_map, *pending)
-                pending = (aux, event, epoch_idx, batch_idx)
+                pending = (aux, event, epoch_idx, batch_idx,
+                           self.global_step)
 
                 self.global_step += 1
                 # Derived, not incremented at the epoch boundary: an
@@ -324,17 +340,22 @@ class Trainer:
         off the card)."""
         with self._timed('step'):
             optimizer.zero_grad(set_to_none=True)
-            loss, aux = tfep_map.training_step_fn(flow, batch)
-            loss.backward()
-            # A parameter that the loss does not read has no gradient:
-            # torch's AdamW would skip it, optax decays it. Give it zeros.
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            with tracing.span('step.forward'):
+                loss, aux = tfep_map.training_step_fn(flow, batch)
+            with tracing.span('step.backward'):
+                loss.backward()
+                tracing.end_backward()
+                # A parameter that the loss does not read has no gradient:
+                # torch's AdamW would skip it, optax decays it. Give it
+                # zeros.
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
             if self.sharding is not None:
                 aux = dict(aux, loss=self._average_over_batch_axis(
                     params, aux['loss']))
-            optimizer.step()
+            with tracing.span('step.optimizer'):
+                optimizer.step()
             return _aux_to_host(aux)
 
     def _average_over_batch_axis(self, params, loss):
@@ -403,6 +424,7 @@ class Trainer:
                 # Stopped mid-epoch: the next batch's forward would have
                 # seen the parameters before this update.
                 keep = [p.detach().clone() for p in params]
+            tracing.set_step(step - 1)
             with self._timed('engine_wait'):
                 potentials, forces = future.result()
             self._profile_tick()
@@ -426,7 +448,7 @@ class Trainer:
                 host_aux = _aux_to_host(aux)
             if logged is not None:
                 self._consume_aux(tfep_map, *logged)
-            logged = (*host_aux, epoch_idx, batch_idx)
+            logged = (*host_aux, epoch_idx, batch_idx, step - 1)
             self.global_step = step
             # Derived like in _fit_loop: checkpoints written at an epoch
             # boundary must store the next epoch.
@@ -453,6 +475,7 @@ class Trainer:
                     break
                 epoch_idx = self.current_epoch
                 for indices in sampler:
+                    tracing.set_step(fwd_count)
                     host_batch = self._read(tfep_map, indices)
                     batch_idx = fwd_count % n_batches
                     batch = self._device_batch(tfep_map, host_batch,
@@ -473,7 +496,7 @@ class Trainer:
                     # Phase B (host thread): the engine on this batch.
                     future = executor.submit(
                         self._engine_eval, tfep_map, mapped['positions'],
-                        ready, host_batch)
+                        ready, host_batch, fwd_count - 1)
                     # Phase C: finish the previous batch while the engine
                     # works on this one.
                     previous, in_flight = in_flight, (
@@ -502,20 +525,22 @@ class Trainer:
             executor.shutdown(wait=False, cancel_futures=True)
         return logged
 
-    def _engine_eval(self, tfep_map, positions, ready, host_batch):
+    def _engine_eval(self, tfep_map, positions, ready, host_batch, step):
         """Phase B on the engine thread: wait for the positions' copy (and
         nothing else), run the engine, return its reduced potentials and
         forces as CPU tensors (pinned when the map is on a card)."""
         if ready is not None:
             ready.synchronize()
-        with self._timed('engine'):
+        with self._timed('engine', step):
             results = tfep_map.host_engine_eval(positions.numpy(),
                                                 host_batch)
         return tuple(_pinned(np.asarray(r), self._on_card) for r in results)
 
     # ------------------------------------------------------------------ #
-    def _timed(self, name):
-        return _Timer(self.host_seconds, name)
+    def _timed(self, name, step=None):
+        """``name``'s seconds into :attr:`host_seconds`, and its span while
+        the recorder is on (``step``: as :func:`tracing.timed`)."""
+        return tracing.timed(self.host_seconds, name, step)
 
     # ------------------------------------------------------------------ #
     # Profiler: a torch.profiler trace and each step's time over the
@@ -534,6 +559,7 @@ class Trainer:
                 activities.append(ProfilerActivity.CUDA)
             self._profiler = profile(activities=activities)
             self._profiler.__enter__()
+            tracing.start()
             self._profile_marks = []
         self._profile_marks.append(_mark(self._on_card))
 
@@ -548,13 +574,15 @@ class Trainer:
         end = _mark(self._on_card)
         if self._on_card:
             torch.cuda.synchronize()
+        spans = tracing.stop()
         self._profiler.__exit__(None, None, None)
         marks = self._profile_marks + [end]
         self.profiled_step_times.extend(
             _seconds_between(a, b) for a, b in zip(marks, marks[1:]))
         os.makedirs(self.profile_dir, exist_ok=True)
-        self._profiler.export_chrome_trace(
-            os.path.join(self.profile_dir, 'trace.json'))
+        path = os.path.join(self.profile_dir, 'trace.json')
+        self._profiler.export_chrome_trace(path)
+        _add_spans_to_chrome_trace(path, spans)
         self.profile, self._profiler = self._profiler, None
 
     # ------------------------------------------------------------------ #
@@ -567,25 +595,31 @@ class Trainer:
         as without prefetch; an early exit (``max_steps`` mid-epoch closes
         the generator) waits for at most the one read in flight.
         """
+        first = self.global_step
         if not self.prefetch:
-            for indices in sampler:
-                yield self._read(tfep_map, indices)
+            for step, indices in enumerate(sampler, first):
+                yield self._read(tfep_map, indices, step)
             return
 
         with ThreadPoolExecutor(
                 max_workers=1,
                 thread_name_prefix='tfep-batch-prefetch') as pool:
             pending = None
-            for indices in sampler:
-                future = pool.submit(self._read, tfep_map, indices)
+            for step, indices in enumerate(sampler, first):
+                future = pool.submit(self._read, tfep_map, indices, step)
                 if pending is not None:
-                    yield pending.result()
+                    yield self._wait_for_read(pending, step - 1)
                 pending = future
             if pending is not None:
-                yield pending.result()
+                yield self._wait_for_read(pending, self.global_step)
 
-    def _read(self, tfep_map, indices):
-        with self._timed('read'):
+    @staticmethod
+    def _wait_for_read(future, step):
+        with tracing.span('read_wait', step):
+            return future.result()
+
+    def _read(self, tfep_map, indices, step=None):
+        with self._timed('read', step):
             return tfep_map.host_tensors(self._dataset.get_batch(indices))
 
     def _device_batch(self, tfep_map, host_batch, step=None):
@@ -596,12 +630,12 @@ class Trainer:
             batch['global_step'] = step
         return batch
 
-    def _consume_aux(self, tfep_map, aux, event, epoch_idx, batch_idx):
+    def _consume_aux(self, tfep_map, aux, event, epoch_idx, batch_idx, step):
         """Read a finished step's aux: TFEP logging + loss channel."""
         if event is not None:
-            with self._timed('wait'):
+            with self._timed('wait', step):
                 event.synchronize()
-        with self._timed('log'):
+        with self._timed('log', step):
             if hasattr(tfep_map, 'log_train_tensors'):
                 tfep_map.log_train_tensors(aux, epoch_idx=epoch_idx,
                                            batch_idx=batch_idx)
@@ -750,21 +784,6 @@ def _map_shards(optimizer, state, flow, shards, fn, whole=False):
                 for key, value in state['state'][index].items()}
 
 
-class _Timer:
-    """Adds the seconds of a ``with`` block to ``totals[name]``."""
-
-    def __init__(self, totals, name):
-        self.totals, self.name = totals, name
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-
-    def __exit__(self, *exc):
-        entry = self.totals.setdefault(self.name, [0.0, 0])
-        entry[0] += time.perf_counter() - self.start
-        entry[1] += 1
-
-
 def _mark(on_card: bool):
     """A point in time: a recorded CUDA event on a card, else the host's
     clock."""
@@ -791,6 +810,25 @@ class _SnapshotFlow:
     def forward(self, *args, **kwargs):
         return torch.func.functional_call(self.flow, self.parameters, args,
                                           kwargs)
+
+
+def _add_spans_to_chrome_trace(path: str, spans):
+    """Append the recorder's ``spans`` to the Chrome trace at ``path`` as
+    complete events, on the trace's time base (microseconds after its
+    ``baseTimeNanoseconds``) and in the rows of their threads."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = trace.get('baseTimeNanoseconds', 0)
+    pid = os.getpid()
+    trace['traceEvents'].extend(
+        dict(ph='X', cat='tfep_span', name=s.name, pid=pid,
+             tid=s.native_thread, ts=(s.start_ns - base) / 1e3,
+             dur=(s.end_ns - s.start_ns) / 1e3,
+             args=dict(id=s.id, parent=s.parent, step=s.step,
+                       thread=s.thread_name))
+        for s in spans)
+    with open(path, 'w') as f:
+        json.dump(trace, f)
 
 
 def _pinned(array: np.ndarray, on_card: bool) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 
 from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.nn.flows.flow import Flow
+from tfep_tpu_torch.utils import tracing
 
 __all__ = ['AutoregressiveFlow']
 
@@ -176,14 +177,17 @@ class AutoregressiveFlow(Flow):
         Returns ``(y, log_det_J)`` with shapes ``(batch, n_features)`` and
         ``(batch,)``.
         """
-        parameters = self.get_transformer_parameters(x)
+        parameters = tracing.layer('maf.conditioner',
+                                   self.get_transformer_parameters, x)
+        return tracing.layer('maf.transformer', self._transform, x,
+                             parameters)
+
+    def _transform(self, x, parameters):
         if self.has_fixed_indices:
             idx = self.transformer_indices_buf
             y_t, log_det_J = self.transformer(x[:, idx], parameters)
-            y = x.index_copy(1, idx, y_t)
-        else:
-            y, log_det_J = self.transformer(x, parameters)
-        return y, log_det_J
+            return x.index_copy(1, idx, y_t), log_det_J
+        return self.transformer(x, parameters)
 
     @property
     def _can_fast_inverse(self) -> bool:

@@ -31,6 +31,7 @@ from tfep_tpu_torch.utils.geometry import (
     batchwise_rotate, cartesian_to_polar, polar_to_cartesian,
     reference_frame_rotation_matrix,
 )
+from tfep_tpu_torch.utils import tracing
 from tfep_tpu_torch.utils.misc import remove_and_shift_sorted_indices
 
 __all__ = ['CartesianToMixedFlow']
@@ -245,11 +246,15 @@ class CartesianToMixedFlow(Flow):
         return self._pass(y, inverse=True)
 
     def _pass(self, x, inverse: bool):
-        y, ldj, origin_position, rotation = self.cartesian_to_mixed(x)
+        # The spans (while the recorder is on) hold the whole conversion
+        # each way: the Z-matrix and the reference frame.
+        y, ldj, origin_position, rotation = tracing.layer(
+            'zmatrix.to_internal', self.cartesian_to_mixed, x)
         out = self.flow.inverse(y) if inverse else self.flow.forward(y)
         ldj = ldj + out[1]
-        x_out, inv_ldj = self.mixed_to_cartesian(out[0], origin_position,
-                                                 rotation)
+        x_out, inv_ldj = tracing.layer(
+            'zmatrix.to_cartesian', self.mixed_to_cartesian, out[0],
+            origin_position, rotation)
         return (x_out, ldj + inv_ldj, *out[2:])
 
     def cartesian_to_mixed(self, x):

@@ -18,6 +18,8 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from tfep_tpu_torch.utils import tracing
+
 __all__ = ['odeint', 'SOLVERS']
 
 # Dormand-Prince 5(4) Butcher tableau (5th-order solution weights).
@@ -115,15 +117,22 @@ def odeint(func: Callable, state0, t0: float, t1: float, n_steps: int = 20,
     if solver not in SOLVERS:
         raise ValueError(
             f"solver must be one of {sorted(SOLVERS)}, got {solver!r}")
-    step_fn = SOLVERS[solver]
+    solver_step = SOLVERS[solver]
+
+    def step_fn(t, state):
+        # Inside the checkpoint, so that the span (while the recorder is
+        # on) fires again in the backward's recompute.
+        with tracing.span('ode.step'):
+            return solver_step(func, t, dt, state)
+
     dt = (t1 - t0) / n_steps
     state = tuple(state0)
     for i in range(n_steps):
         t = t0 + i * dt
         if checkpoint:
             state = _checkpoint(
-                lambda *s, t=t: step_fn(func, t, dt, s), *state,
+                lambda *s, t=t: step_fn(t, s), *state,
                 use_reentrant=False)
         else:
-            state = step_fn(func, t, dt, state)
+            state = step_fn(t, state)
     return state
