@@ -70,18 +70,22 @@ Phases, each of which passes or exits non-zero:
 10. The flagship map: the port's ``MixedMAFMap`` at the configuration of
    ``bench.py``'s ``bench_mixed_jax`` (a 32-atom carbon helix chain with
    0.05 A of noise, 40,960 frames in a ``System``, 6 MAF layers, 8 bins,
-   batch 4096, float32, phase 9's potential). (a) K1/K2 against their
-   plain version at F=30, the width of the map's one standard spline (the
-   angles); (b) the Z-matrix equal to the JAX map's (a literal below) and
-   the transformer's groups; (c) the float32 kernel path against the
-   float64 unfused path on the same weights, on the frames whose float32
-   frame rotation and Z-matrix angles are within CONDITION_TOL of
-   float64's (the others in float64); (d) one epoch through
-   ``Trainer.fit`` with prefetch and a checkpoint, K1/K2 counted at 6/6 per
-   step; (e) finite losses and every step's log rows in the sampler's
+   batch 4096, float32, phase 9's potential). (a) K1/K2 of each spline
+   group's kind against their plain version at the group's width
+   (distances ``identity_upper`` F=31, angles ``standard`` F=30, torsions
+   ``circular`` F=29, and ``circular_identity`` F=29): outputs and the
+   gradients of x and of every parameter row, the parameters read in
+   place from a wider tensor as the map passes them; (b) the Z-matrix
+   equal to the JAX map's (a literal below) and the transformer's groups;
+   (c) the float32 kernel path against the float64 unfused path on the
+   same weights, on the frames whose float32 frame rotation and Z-matrix
+   angles are within CONDITION_TOL of float64's (the others in float64);
+   (d) one epoch through ``Trainer.fit`` with prefetch and a checkpoint,
+   K1/K2 counted at 18/18 per step (one of each a group and layer); (e) finite losses and every step's log rows in the sampler's
    order; (f) a round trip. Then the step with and without the logger, its
    device busy time and idle share, the conversion's device time and
-   kernels per step, K1/K2's times at F=30 and peak memory.
+   kernels per step, K1/K2's times at each group's kind and width against
+   its own byte bound, and peak memory.
 11. The CNF map: the port's ``ContinuousEGNNMap`` at
    ``benchmarks/cnf_bench.py``'s configuration, with
    ``egnn_kwargs={'pairwise': 'pallas'}`` (the JAX package's name,
@@ -99,7 +103,7 @@ Phases, each of which passes or exits non-zero:
    pure-Python one on 256 frames, and a DCD of those frames decodes to the
    same bits both ways; (c) ``MixedMAFMap(coordinates_file_path=...,
    topology_file_path=..., lazy_trajectory=True)`` trains one epoch through
-   ``Trainer.fit`` (prefetch, checkpoints), K1/K2 at 6/6 per step, its
+   ``Trainer.fit`` (prefetch, checkpoints), K1/K2 at 18/18 per step, its
    first batch, loss and log rows bit-identical to a map on the decoded
    frames in memory; a map rebuilt from the checkpoint rereads the file
    and resumes to the uninterrupted run's weights bit for bit; the step
@@ -237,46 +241,81 @@ def rel_err(actual, expected):
     return err, err / max(1.0, float(expected.abs().max()))
 
 
-def spline_inputs(adversarial, device, seed, f=F):
-    """Bench-shape inputs on the domain [-3, 3]; x kept 1e-4 away from
-    every knot, where the bin, and so the gradient, is discontinuous."""
+def spline_inputs(adversarial, device, seed, f=F, kind='standard',
+                  strided=False):
+    """Bench-shape inputs of the spline ``kind`` on the domain [-3, 3]; x
+    kept 1e-4 away from every knot, where the bin, and so the gradient, is
+    discontinuous. A learned upper bound (distances) scales the domain by
+    0.61 to 1.65 and x reaches from below it to past its scaled end; a
+    learned shift (torsions) is up to 1.5 periods either way, x in the
+    period. The adversarial case pushes every free slope to ~9 and one
+    bin's height to the floor, with x (and a torsion's shift, ~0) keeping
+    to the lowest bins: in the floored bin the log-derivative's condition
+    is beyond float32, so two float32 versions cannot agree there to the
+    tolerances. ``strided``: params are the kind's columns of a wider
+    tensor, as ``MixedTransformer`` passes a group's."""
+    from tfep_tpu_torch.ops import spline as fs
+    _, scale, circular = fs.KINDS[kind]
+    P = fs.n_parameters(kind, K)
+    slopes = P - 2 * K - int(scale) - int(circular)
     g = torch.Generator().manual_seed(seed)
+    f64 = dict(generator=g, dtype=torch.float64)
     bound = torch.ones(f, dtype=torch.float64)
     x0, xf = -3.0 * bound, 3.0 * bound
     if adversarial:
-        x = -2.95 + 0.75 * torch.rand(B, f, generator=g, dtype=torch.float64)
-        params = torch.zeros(B, (3 * K + 1) * f, dtype=torch.float64)
-        params[:, 2 * K * f:] = 9.0
+        x = -2.95 + 0.75 * torch.rand(B, f, **f64)
+        params = torch.zeros(B, P * f, dtype=torch.float64)
+        params[:, 2 * K * f:(2 * K + slopes) * f] = 9.0
         params[:, (K + 3) * f:(K + 4) * f] = -30.0
-        params += 0.1 * torch.randn(params.shape, generator=g,
-                                    dtype=torch.float64)
+        params += 0.1 * torch.randn(params.shape, **f64)
     else:
         # Half the batch inside [-3, 3), half outside (3 <= |x| < 6).
-        u = torch.rand(B, f, generator=g, dtype=torch.float64)
+        u = torch.rand(B, f, **f64)
         sign = torch.where(torch.rand(B, f, generator=g) < 0.5, -1.0, 1.0)
         x = torch.cat([-3.0 + 6.0 * u[:B // 2],
                        sign[B // 2:] * (3.0 + 3.0 * u[B // 2:])])
-        params = 0.5 * torch.randn(B, (3 * K + 1) * f, generator=g,
-                                   dtype=torch.float64)
-    knots = x0 + torch.cumsum(torch.softmax(
-        params.reshape(B, 3 * K + 1, f)[:, :K], dim=1) * (6.0 - K * 1e-4)
-        + 1e-4, dim=1)
-    knots = torch.cat([x0.expand(B, 1, f), knots], dim=1)
-    near = (x[:, None] - knots).abs().min(dim=1).values < 1e-4
-    x = torch.where(near, x + 3e-4, x)
+        params = 0.5 * torch.randn(B, P * f, **f64)
+    p = params.view(B, P, f)
+    R = torch.full((B, f), 6.0 - K * 1e-4, dtype=torch.float64)
+    if scale:
+        p[:, -1] = torch.rand(B, f, **f64) - 0.5
+        R = R * p[:, -1].exp()
+        if not adversarial:
+            x = x0 + (R + K * 1e-4) * (2.6 * torch.rand(B, f, **f64) - 0.6)
+    elif circular and not adversarial:
+        p[:, -1] = 6.0 * (3.0 * torch.rand(B, f, **f64) - 1.5)
+        x = x0 + 6.0 * torch.rand(B, f, **f64)
+    xr = x - x0
+    if circular:
+        xr = torch.remainder(xr + p[:, -1], 6.0)
+    knots = torch.cumsum(torch.softmax(p[:, :K], dim=1) * R[:, None]
+                         + 1e-4, dim=1)
+    knots = torch.cat([torch.zeros(B, 1, f, dtype=torch.float64), knots],
+                      dim=1)
+    near = (xr[:, None] - knots).abs().min(dim=1).values < 1e-4
+    # A torsion near the period's end moves down, so it does not wrap.
+    step = torch.where(circular & (xr > 3.0), -3e-4, 3e-4)
+    x = torch.where(near, x + step, x)
     cast = dict(dtype=torch.float32, device=device)
-    return (x.to(**cast), params.to(**cast), x0.to(**cast), xf.to(**cast),
+    if strided:
+        wide = torch.randn(B, P * f + 37, **f64)
+        wide[:, 5:5 + P * f] = params
+        params = wide.to(**cast)[:, 5:5 + P * f]
+    else:
+        params = params.to(**cast)
+    return (x.to(**cast), params, x0.to(**cast), xf.to(**cast),
             x0.to(**cast), xf.to(**cast))
 
 
-def kernel_phase(device, f=F):
-    """K1 and K2 against the plain version at (B, f, K); returns the
-    measured errors."""
+def kernel_phase(device, f=F, kind='standard', strided=False):
+    """K1 and K2 of the spline ``kind`` against the plain version at (B,
+    f, K), the parameters read in place from a wider tensor where
+    ``strided``; returns the measured errors."""
     from tfep_tpu_torch.ops import spline as fs
     results = {}
     for case in ('mixed', 'adversarial'):
         x, params, *bounds = spline_inputs(case == 'adversarial', device, 1,
-                                           f)
+                                           f, kind, strided)
         g = torch.Generator().manual_seed(2)
         gy = torch.randn(B, f, generator=g).to(device)
         gl = torch.randn(B, f, generator=g).to(device)
@@ -284,21 +323,29 @@ def kernel_phase(device, f=F):
         for name, fn in (('kernel', fs.fused_spline),
                          ('plain', fs.fused_spline_reference)):
             xi = x.clone().requires_grad_()
-            pi = params.clone().requires_grad_()
-            y, dl = fn(xi, pi, *bounds, K)
+            # A leaf with the strides of ``params``.
+            pi = torch.empty_strided(
+                params.shape, params.stride(), dtype=params.dtype,
+                device=params.device).copy_(params).requires_grad_()
+            if (pi.stride(0) > pi.shape[1]) != strided:
+                raise AssertionError('the parameters\' layout is not as '
+                                     'asked')
+            y, dl = fn(xi, pi, *bounds, K, kind=kind)
             gx, gp = torch.autograd.grad((y, dl), (xi, pi), (gy, gl))
             outs[name] = [t.detach() for t in (y, dl, gx, gp)]
         torch.cuda.synchronize()
         for i, label in enumerate(('y', 'dl', 'grad_x', 'grad_params')):
             kern, plain = outs['kernel'][i], outs['plain'][i]
             if not torch.isfinite(kern).all():
-                raise AssertionError(f'{case}: kernel {label} not finite')
+                raise AssertionError(f'{kind} {case}: kernel {label} not '
+                                     'finite')
             err, rel = rel_err(kern, plain)
             tol = FORWARD_TOL if i < 2 else BACKWARD_TOL
-            say(f'  {case:11s} {label:11s} max|kernel-plain| = {err:.3e} '
-                f'(relative to scale {rel:.3e}, tolerance {tol:g})')
+            say(f'  {kind} F={f} {case:11s} {label:11s} max|kernel-plain| '
+                f'= {err:.3e} (relative to scale {rel:.3e}, tolerance '
+                f'{tol:g})')
             if not rel <= tol:
-                raise AssertionError(f'{case}: {label} disagrees')
+                raise AssertionError(f'{kind} {case}: {label} disagrees')
             key = 'forward' if i < 2 else 'backward'
             results[key] = max(results.get(key, 0.0), err)
     return results
@@ -311,9 +358,7 @@ def kernel_resources(device):
     x, params, *bounds = spline_inputs(False, device, 3)
     consts = fs._constants(x.device, x.dtype, 1e-4, 1e-4)
     y, dl = torch.empty_like(x), torch.empty_like(x)
-    forward = fs._kernels()['forward'][fs._grid(B, F)](
-        x, params, *bounds, consts, y, dl, B, F, K=K, BLOCK_B=fs.BLOCK_B,
-        BLOCK_F=fs.BLOCK_F, num_warps=fs.NUM_WARPS)
+    forward = fs._forward_launch(x, params, bounds, consts, y, dl, K)
     gx, gp = torch.empty_like(x), torch.empty_like(params)
     backward = fs._backward_launch(x, params, bounds, consts, y, dl, gx, gp,
                                    K, fs.BACKWARD_LAYOUT)
@@ -515,12 +560,13 @@ def graph_ms(fn, sets, n, reps):
     return start.elapsed_time(end) / (reps * n)
 
 
-def spline_sets(device, f=F):
+def spline_sets(device, f=F, kind='standard', strided=False):
     """Four input sets of K1/K2 at (B, f, K), 44 MB each at F = 96: more
     than the 50 MB L2 cache together."""
     sets = []
     for seed in range(4):
-        x, params, *bounds = spline_inputs(False, device, 10 + seed, f)
+        x, params, *bounds = spline_inputs(False, device, 10 + seed, f,
+                                           kind, strided)
         g = torch.Generator().manual_seed(20 + seed)
         gy = torch.randn(B, f, generator=g).to(device)
         gl = torch.randn(B, f, generator=g).to(device)
@@ -1685,12 +1731,13 @@ HELIX_Z_MATRIX = np.array([
     [31, 30, 29, 28]])
 # The mixed transformer's groups: distances (the 29 bonds, d01, d02),
 # angles (29 and a102) and torsions (29); the six kept-constant reference
-# DOFs are conditioning. Only the angle spline is in the standard
-# configuration, so K1/K2 run at F = 30.
+# DOFs are conditioning. Each group's spline has its kernels' kind
+# (ops/spline.py KINDS); the fourth kind, circular with identity slopes,
+# is checked at the torsions' width.
 HELIX_GROUPS = (31, 30, 29)
+HELIX_KINDS = ('identity_upper', 'standard', 'circular')
 HELIX_DOFS = 96
 HELIX_LEVELS = 15
-MIXED_F = HELIX_GROUPS[1]
 # Trainer.fit's steps between the two unprofiled runs whose difference
 # times a step.
 MIXED_TIMED_STEPS = 10
@@ -1786,8 +1833,13 @@ def mixed_phase(device, smi):
     from tfep_tpu_torch.ops import spline as fs
     from tfep_tpu_torch.units import ureg
 
-    # (a) K1/K2 against their plain version at the angle spline's width.
-    errors = kernel_phase(device, MIXED_F)
+    # (a) K1/K2 of each group's kind against their plain version at its
+    # width, the parameters read in place as the map passes them.
+    errors = {}
+    for f, kind in (*zip(HELIX_GROUPS, HELIX_KINDS),
+                    (HELIX_GROUPS[2], 'circular_identity')):
+        for key, err in kernel_phase(device, f, kind, strided=True).items():
+            errors[key] = max(errors.get(key, 0.0), err)
 
     topology = Topology(names=[f'C{i}' for i in range(HELIX_ATOMS)],
                         elements=['C'] * HELIX_ATOMS,
@@ -1901,7 +1953,8 @@ def mixed_phase(device, smi):
         if fit.global_step != n_steps or len(losses) != n_steps:
             raise AssertionError(f'(d) the trainer did not take {n_steps} '
                                  'steps')
-        if launches != (N_LAYERS * n_steps, N_LAYERS * n_steps):
+        # One K1 and one K2 a spline group (distances, angles, torsions).
+        if launches != (3 * N_LAYERS * n_steps, 3 * N_LAYERS * n_steps):
             raise AssertionError(f'(d) K1/K2 launched {launches}')
         if not np.all(np.isfinite(losses)):
             raise AssertionError('(e) a loss is not finite')
@@ -1961,28 +2014,30 @@ def mixed_phase(device, smi):
             f'{2 * MIXED_TIMED_STEPS} steps: '
             + ', '.join(f'{name} {ms:.3f}' for name, ms in host.items()))
 
-        # K1/K2 at the angle spline's width.
-        sets = spline_sets(device, MIXED_F)
+        # K1/K2 of each group, at its width and kind, read in place.
         consts = (K, 1e-4, 1e-4)
         kernel_ms = {}
-        for name, launch, nbytes, nops in (
-                ('spline_forward',
-                 lambda x, p, b, gy, gl: fs.launch_forward(x, p, *b, *consts),
-                 fs.forward_bytes(B, MIXED_F, K, 4),
-                 fs.forward_ops(B, MIXED_F, K)),
-                ('spline_backward',
-                 lambda x, p, b, gy, gl: fs.launch_backward(
-                     x, p, *b, gy, gl, *consts),
-                 fs.backward_bytes(B, MIXED_F, K, 4),
-                 fs.backward_ops(B, MIXED_F, K))):
-            runs = [graph_ms(launch, sets, 64, 5) for _ in range(2)]
-            kernel_ms[name] = sum(runs) / 2
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           nops / FP32_OPS_PER_S) * 1e3
-            say(f'  {name} at F={MIXED_F}: {kernel_ms[name]:.5f} ms (CUDA '
-                f'graph, runs {runs[0]:.5f}, {runs[1]:.5f}); bound '
-                f'{bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB), '
-                f'{bound_ms / kernel_ms[name]:.3f} of it; [{smi}]')
+        for f, kind in zip(HELIX_GROUPS, HELIX_KINDS):
+            sets = spline_sets(device, f, kind, strided=True)
+            for name, launch, nbytes, nops in (
+                    ('spline_forward',
+                     lambda x, p, b, gy, gl: fs.launch_forward(
+                         x, p, *b, *consts, kind=kind),
+                     fs.forward_bytes(B, f, K, 4, kind),
+                     fs.forward_ops(B, f, K)),
+                    ('spline_backward',
+                     lambda x, p, b, gy, gl: fs.launch_backward(
+                         x, p, *b, gy, gl, *consts, kind=kind),
+                     fs.backward_bytes(B, f, K, 4, kind),
+                     fs.backward_ops(B, f, K))):
+                runs = [graph_ms(launch, sets, 64, 5) for _ in range(2)]
+                ms = kernel_ms[f'{name}_{kind}'] = sum(runs) / 2
+                bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                               nops / FP32_OPS_PER_S) * 1e3
+                say(f'  {name} {kind} at F={f}: {ms:.5f} ms (CUDA graph, '
+                    f'runs {runs[0]:.5f}, {runs[1]:.5f}); bound '
+                    f'{bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB), '
+                    f'{bound_ms / ms:.3f} of it; [{smi}]')
         del sets
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2446,7 +2501,8 @@ def file_phase(device, smi, mixed):
             f'batch, loss ({fit.loss_history[0]:.9g}) and {B} log rows '
             f'bit-identical to the in-memory map\'s: {first_same}; every '
             f'loss: {all_losses_same}; final weights: {weights_same}')
-        if launches != (N_LAYERS * n_steps, N_LAYERS * n_steps):
+        # One K1 and one K2 a spline group (distances, angles, torsions).
+        if launches != (3 * N_LAYERS * n_steps, 3 * N_LAYERS * n_steps):
             raise AssertionError(f'(c) K1/K2 launched {launches}')
         if not (first_same and np.all(np.isfinite(fit.loss_history))):
             raise AssertionError('(c) the file map\'s first step differs')

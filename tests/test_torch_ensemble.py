@@ -372,11 +372,12 @@ def counting_launchers(monkeypatch):
         return vjp((gy, gl))
 
     def kernel_route(x, params, x0, xf, y0, yf, n_bins, min_bin_size=1e-4,
-                     min_slope=1e-4):
+                     min_slope=1e-4, kind='standard'):
         ops_spline._check(x, params, dict(x0=x0, xf=xf, y0=y0, yf=yf),
-                          n_bins)
+                          n_bins, kind)
         return ops_spline._FusedSpline.apply(x, params, x0, xf, y0, yf,
-                                             n_bins, min_bin_size, min_slope)
+                                             n_bins, min_bin_size, min_slope,
+                                             kind)
 
     monkeypatch.setattr(ops_spline, 'launch_forward', launch_forward)
     monkeypatch.setattr(ops_spline, 'launch_backward', launch_backward)

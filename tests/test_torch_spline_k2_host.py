@@ -78,6 +78,7 @@ def _language():
                                                                     step)
     tl.load, tl.store, tl.where = load, store, where
     tl.exp, tl.log, tl.abs = torch.exp, torch.log, torch.abs
+    tl.floor = torch.floor
     tl.maximum = lambda a, b: torch.maximum(as_tensor(a, b), as_tensor(b, a))
     tl.minimum = lambda a, b: torch.minimum(as_tensor(a, b), as_tensor(b, a))
     tl.max = lambda v, axis: torch.amax(v, dim=axis)
@@ -86,6 +87,15 @@ def _language():
     tl.expand_dims = lambda v, axis: v.unsqueeze(axis)
     tl.zeros_like = torch.zeros_like
     return tl, state
+
+
+def _pointer(t):
+    """A tensor's first element as a pointer into its whole storage, so
+    a strided view is read where it lies."""
+    flat = torch.empty(0, dtype=t.dtype).set_(
+        t.untyped_storage(), 0, (t.untyped_storage().nbytes()
+                                 // t.element_size(),))
+    return _Ptr(flat, t.storage_offset())
 
 
 class _Kernel:
@@ -100,8 +110,8 @@ class _Kernel:
 
     def __getitem__(self, grid):
         def launch(*args, num_warps=4, **constexprs):
-            args = [_Ptr(a.view(-1), 0) if isinstance(a, torch.Tensor)
-                    else a for a in args]
+            args = [_pointer(a) if isinstance(a, torch.Tensor) else a
+                    for a in args]
             self.state['grid'] = grid
             for pid in itertools.product(*map(range, grid)):
                 self.state['pid'] = pid

@@ -88,6 +88,8 @@ SPLINE_CONFIGS = {
                                      identity_boundary_slopes=True),
     'identity_slopes': dict(identity_boundary_slopes=True),
     'learn_upper': dict(learn_upper_bound=True),
+    'identity_slopes_learn_upper': dict(identity_boundary_slopes=True,
+                                        learn_upper_bound=True),
     'learn_lower': dict(learn_lower_bound=True),
     'learn_both': dict(learn_lower_bound=True, learn_upper_bound=True),
     'learn_both_identity_slopes': dict(learn_lower_bound=True,
@@ -177,8 +179,9 @@ def test_spline_scalar_bounds():
 
 
 def test_spline_dispatch(monkeypatch):
-    """'auto' and 'always' take the fused spline in the standard
-    configuration, 'never' and every other configuration do not."""
+    """'auto' and 'always' take the fused spline in the standard, the
+    distances' (identity slopes, learned upper bound) and the circular
+    configurations; 'never' and every other configuration do not."""
     calls = []
     real = ops_spline.fused_spline
 
@@ -191,9 +194,14 @@ def test_spline_dispatch(monkeypatch):
     x = np.zeros((2, N))
     for config, fused, expected in [
             ('standard', 'auto', True), ('standard', 'always', True),
-            ('standard', 'never', False), ('circular', 'always', False),
+            ('standard', 'never', False), ('circular', 'always', True),
+            ('circular_identity_slopes', 'auto', True),
+            ('identity_slopes_learn_upper', 'auto', True),
+            ('circular', 'never', False),
+            ('identity_slopes_learn_upper', 'never', False),
             ('identity_slopes', 'auto', False),
-            ('learn_upper', 'always', False)]:
+            ('learn_upper', 'always', False),
+            ('learn_both_identity_slopes', 'always', False)]:
         tr_t, _ = _spline_pair(config, fused)
         assert tr_t._fused_applicable == expected
         params = np.zeros((2, tr_t.n_parameters_per_feature * N))

@@ -98,14 +98,15 @@ class MixedTransformer(MAFTransformer):
                              f'{self.n_features} features, got {x.shape[1]}.')
         parts = []
         log_det_J = 0.0
-        offset = 0
-        for transformer, ind, plen in zip(self.transformers,
-                                          self.columns['groups'],
-                                          self.param_lengths):
+        # Views of the parameters' columns, one a group, which the spline
+        # kernels read in place; their gradients come back as one
+        # concatenation.
+        group_parameters = torch.split(parameters, self.param_lengths, dim=1)
+        for transformer, ind, group_params in zip(self.transformers,
+                                                  self.columns['groups'],
+                                                  group_parameters):
             fn = transformer.inverse if inverse else transformer.forward
-            y_part, ldj = fn(x.index_select(1, ind),
-                             parameters[:, offset:offset + plen])
-            offset += plen
+            y_part, ldj = fn(x.index_select(1, ind), group_params)
             parts.append(y_part)
             log_det_J = log_det_J + ldj
         rest = self.columns['rest']

@@ -9,9 +9,13 @@ min bin-size/slope floors. The parameter-count contract
 degrees depend on it.
 
 In the standard configuration (non-circular, fixed domain, K+1 free
-slopes) the forward pass goes through :func:`tfep_tpu_torch.ops.spline.
-fused_spline`: the Triton kernels K1/K2 on a CUDA tensor, their plain
-version on a CPU tensor.
+slopes), and in the distances' (identity boundary slopes and a learnable
+upper bound) and the torsions' (circular, with or without identity
+boundary slopes), the forward pass goes through
+:func:`tfep_tpu_torch.ops.spline.fused_spline`: the Triton kernels K1/K2
+on a CUDA tensor, their plain version on a CPU tensor. A learnable lower
+bound, and identity slopes or a learnable upper bound alone, take the
+one-hot formulation.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tfep_tpu_torch.device import resolve_device
 from tfep_tpu_torch.nn.transformers.transformer import MAFTransformer
-from tfep_tpu_torch.ops.spline import fused_spline, softplus, spline_offset
+from tfep_tpu_torch.ops.spline import (
+    KINDS, fused_spline, softplus, spline_offset,
+)
 
 __all__ = [
     'NeuralSplineTransformer',
@@ -57,9 +63,10 @@ class NeuralSplineTransformer(MAFTransformer):
     min_bin_size, min_slope : float, optional
         Positivity floors on bin sizes and knot slopes.
     fused : {'auto', 'always', 'never'}, optional
-        In the standard configuration, 'auto' and 'always' run the fused
-        spline (the Triton kernels on a CUDA tensor) and 'never' runs the
-        one-hot formulation of :meth:`_forward_impl`. The JAX package's
+        In a configuration the kernels take (:attr:`_fused_kind`), 'auto'
+        and 'always' run the fused spline (the Triton kernels on a CUDA
+        tensor) and 'never' runs the one-hot formulation of
+        :meth:`_forward_impl`. The JAX package's
         'auto' picks its XLA path because of a TPU measurement, which does
         not carry over to this card.
     remat : bool, optional
@@ -128,23 +135,33 @@ class NeuralSplineTransformer(MAFTransformer):
 
     # ------------------------------------------------------------------ #
     @property
+    def _fused_kind(self):
+        """The kernels' kind (:data:`~tfep_tpu_torch.ops.spline.KINDS`)
+        for this configuration under 'auto' or 'always', else None."""
+        if self.fused == 'never' or self.learn_lower_bound:
+            return None
+        flags = (self.identity_boundary_slopes, self.learn_upper_bound,
+                 self.circular)
+        return next((k for k, f in KINDS.items() if f == flags), None)
+
+    @property
     def _fused_applicable(self) -> bool:
         """Whether the fused spline (kernels K1/K2) handles this
-        configuration: the standard one, under 'auto' or 'always'."""
-        return (self.fused != 'never'
-                and not self.circular
-                and not self.identity_boundary_slopes
-                and not self.learn_lower_bound
-                and not self.learn_upper_bound)
+        configuration."""
+        return self._fused_kind is not None
 
     def forward(self, x, parameters):
-        if self._fused_applicable:
+        kind = self._fused_kind
+        if kind is not None:
             n = x.shape[-1]
             bounds = [torch.broadcast_to(b, (n,)).contiguous()
                       for b in (self.x0, self.xf, self.y0, self.yf)]
-            y, dl = fused_spline(x.contiguous(), parameters.contiguous(),
-                                 *bounds, self.n_bins, self.min_bin_size,
-                                 self.min_slope)
+            # A slice of a wider conditioner output is read in place.
+            if parameters.ndim != 2 or parameters.stride(-1) != 1:
+                parameters = parameters.contiguous()
+            y, dl = fused_spline(x.contiguous(), parameters, *bounds,
+                                 self.n_bins, self.min_bin_size,
+                                 self.min_slope, kind=kind)
             return y, torch.sum(dl, dim=-1)
         if self.remat:
             return checkpoint(self._forward_impl, x, parameters,

@@ -48,10 +48,32 @@ thread, whose registers spill. What is left is the access pattern's:
 ``tfep_tpu_torch/tools/spline_k2_probe.py`` times K2 beside a copy with
 its grid, tile and bytes.
 
+Kinds. Both kernels take three more spline configurations of the
+transformer, as ``tl.constexpr`` specialisations of the same source (the
+standard one compiles to the arithmetic above, unchanged), chosen by
+``kind`` (:data:`KINDS`):
+
+- ``identity_upper`` (distances): both boundary slopes pinned to
+  ``softplus(offset) + min_slope`` (1 up to rounding), K-1 free inner
+  slopes, and a learned upper bound: ``exp`` of the element's last
+  parameter scales the width and height of the domain above ``x0``,
+  ``y0``, and so where the upper tail starts and ends.
+- ``circular`` (torsions): K free slopes, slope K tied to slope 0, and a
+  learned shift, the last parameter: the spline maps ``(x - x0 + shift)
+  mod (xf - x0) + x0``, whose derivative with respect to ``x`` and to the
+  shift is 1.
+- ``circular_identity``: the circular spline with both boundary slopes
+  pinned.
+
+Each kind reads its ``NP`` parameter rows per feature (3K+1, 3K, 3K+1, 3K)
+from rows that may be a strided view (``P_STRIDE`` elements from one row
+to the next, the features contiguous), so a group's slice of a wider
+conditioner output is read in place; K2 writes a contiguous gradient.
+
 There is no feature padding and no batch tiling constraint: ragged B and F
 edges are masked. Triton compiles both kernels at their first launch from
 this source, into ``TRITON_CACHE_DIR`` (default ``build/triton`` of the
-checkout).
+checkout), once for each kind.
 
 The wrapper :func:`fused_spline` launches the kernels for CUDA tensors and
 runs :func:`fused_spline_reference`, the plain PyTorch version of the same
@@ -68,20 +90,48 @@ import torch
 
 from tfep_tpu_torch.ops import LaunchCounter, fold_members, unfold_members
 
-__all__ = ['fused_spline', 'fused_spline_reference', 'LAUNCHES', 'softplus',
-           'spline_offset', 'launch_forward', 'launch_backward',
-           'forward_bytes', 'backward_bytes', 'forward_ops', 'backward_ops']
+__all__ = ['fused_spline', 'fused_spline_reference', 'LAUNCHES', 'KINDS',
+           'n_parameters', 'softplus', 'spline_offset', 'launch_forward',
+           'launch_backward', 'forward_bytes', 'backward_bytes',
+           'forward_ops', 'backward_ops']
+
+# The spline configurations the kernels take: (identity boundary slopes,
+# learned upper bound, circular with a learned shift).
+KINDS = {
+    'standard': (False, False, False),
+    'identity_upper': (True, True, False),
+    'circular': (False, False, True),
+    'circular_identity': (True, False, True),
+}
 
 
-def forward_bytes(B: int, F: int, K: int, itemsize: int) -> int:
+def _free_slopes(kind: str, K: int) -> int:
+    """K+1 knot slopes, less the two pinned boundary slopes, or less the
+    last where it is tied to the first."""
+    identity, _, circular = KINDS[kind]
+    return K - 1 if identity else K if circular else K + 1
+
+
+def n_parameters(kind: str, K: int) -> int:
+    """Raw parameters per feature of ``kind``: K width and K height
+    logits, the free slopes, then a scale or a shift."""
+    _, scale, circular = KINDS[kind]
+    return 2 * K + _free_slopes(kind, K) + int(scale) + int(circular)
+
+
+def forward_bytes(B: int, F: int, K: int, itemsize: int,
+                  kind: str = 'standard') -> int:
     """Least bytes K1 moves: x, params and 4 bound rows in; y, dl out."""
-    return itemsize * (B * F + B * (3 * K + 1) * F + 4 * F + 2 * B * F)
+    P = n_parameters(kind, K)
+    return itemsize * (B * F + B * P * F + 4 * F + 2 * B * F)
 
 
-def backward_bytes(B: int, F: int, K: int, itemsize: int) -> int:
+def backward_bytes(B: int, F: int, K: int, itemsize: int,
+                   kind: str = 'standard') -> int:
     """Least bytes K2 moves: x, params, 4 bound rows, gy, gl in; gx,
     gparams out."""
-    return itemsize * (3 * B * F + 2 * B * (3 * K + 1) * F + 4 * F + B * F)
+    P = n_parameters(kind, K)
+    return itemsize * (3 * B * F + 2 * B * P * F + 4 * F + B * F)
 
 
 # Operations per element, counted from the kernels below: each arithmetic
@@ -102,7 +152,10 @@ def backward_ops(B: int, F: int, K: int) -> int:
     return B * F * (81 * K + 159)
 
 
-LAUNCHES = LaunchCounter('forward', 'backward')
+# K1's and K2's launches, and each kind's (``forward_circular``, ...).
+LAUNCHES = LaunchCounter('forward', 'backward', *(
+    f'{direction}_{kind}' for kind in KINDS
+    for direction in ('forward', 'backward')))
 
 # K1's tile.
 BLOCK_B = 4
@@ -139,13 +192,14 @@ def softplus(z):
 
 def fused_spline_reference(x, params, x0, xf, y0, yf, n_bins: int,
                            min_bin_size: float = 1e-4,
-                           min_slope: float = 1e-4):
+                           min_slope: float = 1e-4, kind: str = 'standard'):
     """Plain PyTorch version of the kernels' function, element by element.
 
     Follows the kernel's math: softmax, softplus with offset, the per-bin
     rational-quadratic map under a mask with the clamp of the bin-relative
-    position, and linear tails outside ``[x0, xf]``. Its autograd is the
-    reference for K2. Arguments as :func:`fused_spline`.
+    position, and linear tails outside ``[x0, xf]``; for the other kinds
+    the pinned or tied slopes, the domain scale and the shift. Its
+    autograd is the reference for K2. Arguments as :func:`fused_spline`.
 
     Returns
     -------
@@ -153,17 +207,35 @@ def fused_spline_reference(x, params, x0, xf, y0, yf, n_bins: int,
     """
     K = n_bins
     B, F = x.shape
-    p = params.reshape(B, 3 * K + 1, F)
+    identity, scale, circular = KINDS[kind]
+    p = params.reshape(B, n_parameters(kind, K), F)
     R_w = (xf - x0) - K * min_bin_size
     R_h = (yf - y0) - K * min_bin_size
+    W = xf - x0
+    xr = x - x0
+    if scale:
+        domain_scale = torch.exp(p[:, -1])
+        R_w = R_w * domain_scale
+        R_h = R_h * domain_scale
+        W = R_w + K * min_bin_size
+        yf = y0 + R_h + K * min_bin_size
+    if circular:
+        xr = torch.remainder(xr + p[:, -1], W)
+    raw = p[:, 2 * K:2 * K + _free_slopes(kind, K)]
+    if identity:
+        zero = torch.zeros_like(raw[:, :1])
+        raw = torch.cat([zero, raw, zero], dim=1)
+    elif circular:
+        raw = torch.cat([raw, raw[:, :1]], dim=1)
+    R_w, R_h = R_w.unsqueeze(-2), R_h.unsqueeze(-2)
     widths = torch.softmax(p[:, :K], dim=1) * R_w + min_bin_size
     heights = torch.softmax(p[:, K:2 * K], dim=1) * R_h + min_bin_size
-    slopes = softplus(p[:, 2 * K:] + spline_offset(min_slope)) + min_slope
+    slopes = softplus(raw + spline_offset(min_slope)) + min_slope
 
     zero = torch.zeros_like(widths[:, :1])
     cw = torch.cat([zero, torch.cumsum(widths[:, :-1], dim=1)], dim=1)
     ch = torch.cat([zero, torch.cumsum(heights[:, :-1], dim=1)], dim=1)
-    xr = (x - x0)[:, None]
+    xr = xr[:, None]
     in_bin = xr >= cw
     in_bin = torch.cat([in_bin[:, :-1] & (xr < cw + widths)[:, :-1],
                         in_bin[:, -1:]], dim=1)
@@ -182,7 +254,6 @@ def fused_spline_reference(x, params, x0, xf, y0, yf, n_bins: int,
     dl = torch.sum(torch.where(in_bin, dl_k, 0.0), dim=1)
 
     xr = xr[:, 0]
-    W = xf - x0
     below = xr < 0.0
     above = xr >= W
     y = torch.where(below, y0 + slopes[:, 0] * xr, y)
@@ -206,7 +277,7 @@ def _kernels():
     """
     if _KERNELS:
         return _KERNELS
-    global tl, _softplus_tl, _slope_tl, _bins_sum
+    global tl, _softplus_tl, _slope_tl, _bins_sum, _period_tl
     build = Path(__file__).resolve().parents[2] / 'build'
     os.environ.setdefault('TRITON_CACHE_DIR', str(build / 'triton'))
     os.environ.setdefault('TRITON_HOME', str(build))
@@ -223,15 +294,25 @@ def _kernels():
         return tl.maximum(z, 0.0) + lp
 
     @triton.jit
+    def _period_tl(t, period):
+        # torch.remainder(t, period) for period > 0, in [0, period) also
+        # where the quotient rounded across a whole number.
+        r = t - tl.floor(t / period) * period
+        r = tl.where(r < 0.0, r + period, r)
+        return tl.where(r >= period, r - period, r)
+
+    @triton.jit
     def forward_kernel(x_ptr, p_ptr, x0_ptr, xf_ptr, y0_ptr, yf_ptr, c_ptr,
-                       y_ptr, dl_ptr, B, F, K: tl.constexpr,
-                       BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr):
+                       y_ptr, dl_ptr, B, F, P_STRIDE, K: tl.constexpr,
+                       BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr,
+                       NP: tl.constexpr, IDENTITY: tl.constexpr,
+                       SCALE: tl.constexpr, CIRCULAR: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
         cols = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
         cmask = cols < F
         m = (rows < B)[:, None] & cmask[None, :]
         xy = rows[:, None] * F + cols[None, :]
-        pb = p_ptr + rows[:, None] * ((3 * K + 1) * F) + cols[None, :]
+        pb = p_ptr + rows[:, None] * P_STRIDE + cols[None, :]
         min_bin = tl.load(c_ptr)
         min_slope = tl.load(c_ptr + 1)
         offset = tl.load(c_ptr + 2)
@@ -245,6 +326,18 @@ def _kernels():
         R_h = (yf - y0) - K * min_bin
         xr = x - x0
         W = xf - x0
+        if SCALE:
+            # The learned upper bound: the last row's exp scales the
+            # domain above x0 and y0.
+            scale = tl.exp(tl.load(pb + (NP - 1) * F, mask=m, other=0.0))
+            R_w = R_w * scale
+            R_h = R_h * scale
+            W = R_w + K * min_bin
+            yf = y0 + R_h + K * min_bin
+        if CIRCULAR:
+            # The learned shift, the last row, then the period.
+            xr = _period_tl(xr + tl.load(pb + (NP - 1) * F, mask=m,
+                                         other=0.0), W)
 
         # Softmax statistics of the width and height logits.
         w_max = tl.load(pb, mask=m, other=0.0)
@@ -261,8 +354,12 @@ def _kernels():
                             - h_max)
 
         # Walk the bins; keep the element's own bin (bin 0 when below).
-        s_lo = _softplus_tl(tl.load(pb + 2 * K * F, mask=m, other=0.0)
-                            + offset) + min_slope
+        # Slope k is on row 2K + k, or 2K + k - 1 where slope 0 is pinned.
+        if IDENTITY:
+            s_lo = tl.zeros_like(x) + tl.load(c_ptr + 3)
+        else:
+            s_lo = _softplus_tl(tl.load(pb + 2 * K * F, mask=m, other=0.0)
+                                + offset) + min_slope
         s_first = s_lo
         cw = tl.zeros_like(x)
         ch = tl.zeros_like(x)
@@ -271,8 +368,17 @@ def _kernels():
                    / w_sum * R_w + min_bin)
             h_k = (tl.exp(tl.load(pb + (K + k) * F, mask=m, other=0.0)
                           - h_max) / h_sum * R_h + min_bin)
-            s_hi = _softplus_tl(tl.load(pb + (2 * K + k + 1) * F, mask=m,
-                                        other=0.0) + offset) + min_slope
+            if k < K - 1:
+                s_hi = _softplus_tl(tl.load(
+                    pb + (2 * K + k + 1 - IDENTITY) * F, mask=m, other=0.0)
+                    + offset) + min_slope
+            elif IDENTITY:
+                s_hi = s_first   # pinned, as slope 0
+            elif CIRCULAR:
+                s_hi = s_first   # tied to slope 0
+            else:
+                s_hi = _softplus_tl(tl.load(pb + 3 * K * F, mask=m,
+                                            other=0.0) + offset) + min_slope
             if k == 0:
                 b_w = w_k
                 b_h = h_k
@@ -334,11 +440,13 @@ def _kernels():
         s = tl.maximum(z, 0.0) + tl.log(u) + (t - (u - 1.0)) * r + min_slope
         return s, tl.where(z >= 0.0, r, t * r)
 
-    @triton.jit(do_not_specialize=['B', 'F'])
+    @triton.jit(do_not_specialize=['B', 'F', 'P_STRIDE'])
     def backward_kernel(x_ptr, p_ptr, x0_ptr, xf_ptr, y0_ptr, yf_ptr, c_ptr,
-                        gy_ptr, gl_ptr, gx_ptr, gp_ptr, B, F,
+                        gy_ptr, gl_ptr, gx_ptr, gp_ptr, B, F, P_STRIDE,
                         K: tl.constexpr, KP: tl.constexpr,
-                        BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr):
+                        BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr,
+                        NP: tl.constexpr, IDENTITY: tl.constexpr,
+                        SCALE: tl.constexpr, CIRCULAR: tl.constexpr):
         # Axes: rows, bins, features. Every tensor is 3-D so that all share
         # one layout; Triton orders the axes features, rows, bins, so with
         # BLOCK_B * BLOCK_F threads a thread holds all bins of its element.
@@ -351,18 +459,26 @@ def _kernels():
         m = (rows < B) & cmask
         mk = m & (kk < K)
         xy = rows * F + cols
-        poff = rows * ((3 * K + 1) * F) + cols
+        poff = rows * P_STRIDE + cols
+        goff = rows * (NP * F) + cols
         pb = p_ptr + poff + kk * F
-        gb = gp_ptr + poff + kk * F
+        gb = gp_ptr + goff + kk * F
         min_bin = tl.load(c_ptr)
         min_slope = tl.load(c_ptr + 1)
         offset = tl.load(c_ptr + 2)
 
-        # Every input is read once: 3K+1 parameters, x, gy, gl per element.
+        # Every input is read once: NP parameters, x, gy, gl per element.
         lw = tl.load(pb, mask=mk, other=-float('inf'))
         lh = tl.load(pb + K * F, mask=mk, other=-float('inf'))
-        zs = tl.load(pb + 2 * K * F, mask=mk, other=0.0) + offset
-        z_last = tl.load(p_ptr + poff + 3 * K * F, mask=m, other=0.0) + offset
+        if IDENTITY:
+            # Slopes 1..K-1 on rows 2K..3K-2; slopes 0 and K pinned.
+            zs = tl.load(pb + (2 * K - 1) * F, mask=mk & (kk >= 1),
+                         other=0.0) + offset
+        else:
+            zs = tl.load(pb + 2 * K * F, mask=mk, other=0.0) + offset
+        if IDENTITY + CIRCULAR == 0:
+            z_last = tl.load(p_ptr + poff + 3 * K * F, mask=m,
+                             other=0.0) + offset
         x = tl.load(x_ptr + xy, mask=m, other=0.0)
         gy = tl.load(gy_ptr + xy, mask=m, other=0.0)
         gl = tl.load(gl_ptr + xy, mask=m, other=0.0)
@@ -374,6 +490,15 @@ def _kernels():
         R_h = (yf - y0) - K * min_bin
         xr = x - x0
         W = xf - x0
+        if SCALE:
+            scale = tl.exp(tl.load(p_ptr + poff + (NP - 1) * F, mask=m,
+                                   other=0.0))
+            R_w = R_w * scale
+            R_h = R_h * scale
+            W = R_w + K * min_bin
+        if CIRCULAR:
+            xr = _period_tl(xr + tl.load(p_ptr + poff + (NP - 1) * F,
+                                         mask=m, other=0.0), W)
         below = xr < 0.0
         above = xr >= W
         inside = (xr >= 0.0) & (xr < W)
@@ -385,7 +510,14 @@ def _kernels():
         eh = tl.exp(lh - tl.expand_dims(tl.max(lh, axis=1), 1))
         ph = eh * (1.0 / _bins_sum(eh))
         s, sig = _slope_tl(zs, min_slope)
-        s_last, sig_last = _slope_tl(z_last, min_slope)
+        if IDENTITY:
+            s_one = tl.load(c_ptr + 3)
+            s = tl.where(kk == 0, s_one, s)
+            s_last = tl.zeros_like(x) + s_one
+        elif CIRCULAR:
+            s_last = _bins_sum(tl.where(kk == 0, s, 0.0))
+        else:
+            s_last, sig_last = _slope_tl(z_last, min_slope)
 
         # The element's bin: the number of inner knots at or below it (bin
         # 0 below the domain, K-1 above it). cw, ch: right edges of the bins.
@@ -460,10 +592,27 @@ def _kernels():
         g_s = (tl.where(inside & at, gs_k, 0.0)
                + tl.where(inside & (kk == b + 1), gs_k1, 0.0))
         g_s += tl.where((kk == 0) & below, gy * xr + gl_tail, 0.0)
-        tl.store(gb + 2 * K * F, g_s * sig, mask=mk)
         g_last = (tl.where(inside & (b == K - 1), gs_k1, 0.0)
                   + tl.where(above, gy * (xr - W) + gl_tail, 0.0))
-        tl.store(gp_ptr + poff + 3 * K * F, g_last * sig_last, mask=m)
+        if IDENTITY:
+            tl.store(gb + (2 * K - 1) * F, g_s * sig, mask=mk & (kk >= 1))
+        elif CIRCULAR:
+            # Slope K is slope 0: its gradient joins row 2K's.
+            g_s += tl.where(kk == 0, g_last, 0.0)
+            tl.store(gb + 2 * K * F, g_s * sig, mask=mk)
+        else:
+            tl.store(gb + 2 * K * F, g_s * sig, mask=mk)
+            tl.store(gp_ptr + goff + 3 * K * F, g_last * sig_last, mask=m)
+        if SCALE:
+            # d/d log(scale) of R_w, R_h is R_w, R_h: through every width
+            # and height inside, through the upper tail's start and end
+            # above.
+            g_scale = tl.where(inside, R_w * dot_w + R_h * dot_h, 0.0)
+            g_scale = tl.where(above, gy * (R_h - s_last * R_w), g_scale)
+            tl.store(gp_ptr + goff + (NP - 1) * F, g_scale, mask=m)
+        if CIRCULAR:
+            # The shift moves the input: its gradient is the input's.
+            tl.store(gp_ptr + goff + (NP - 1) * F, gx, mask=m)
 
     _KERNELS['forward'] = forward_kernel
     _KERNELS['backward'] = backward_kernel
@@ -471,13 +620,18 @@ def _kernels():
 
 
 def _constants(device, dtype, min_bin_size, min_slope):
-    """min_bin_size, min_slope and the offset as a tensor of the kernel's
-    type, so float64 kernels get them unrounded. Cached per device."""
+    """min_bin_size, min_slope, the offset and the pinned boundary slope
+    as a tensor of the kernel's type, so float64 kernels get them
+    unrounded. The pinned slope is ``softplus(0 + offset) + min_slope``
+    in that type, as the transformer's plain path computes it from a zero
+    parameter. Cached per device."""
     key = (device, dtype, min_bin_size, min_slope)
     if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.tensor(
-            [min_bin_size, min_slope, spline_offset(min_slope)],
-            dtype=dtype, device=device)
+        offset = spline_offset(min_slope)
+        pinned = softplus(torch.zeros((), dtype=dtype) + offset) + min_slope
+        _CONSTANTS[key] = torch.cat([
+            torch.tensor([min_bin_size, min_slope, offset], dtype=dtype),
+            pinned[None]]).to(device)
     return _CONSTANTS[key]
 
 
@@ -490,65 +644,98 @@ def _padded_bins(n_bins):
     return 1 << max(n_bins - 1, 0).bit_length()
 
 
-def _require_cuda(*tensors):
-    for t in tensors:
-        if t.device.type != 'cuda' or not t.is_contiguous():
+def _kind_constexprs(kind, n_bins):
+    """The kernels' specialisation for ``kind``."""
+    identity, scale, circular = KINDS[kind]
+    return dict(NP=n_parameters(kind, n_bins), IDENTITY=int(identity),
+                SCALE=int(scale), CIRCULAR=int(circular))
+
+
+def _require_cuda(params, *tensors):
+    """CUDA tensors, contiguous but for ``params``, whose rows may be
+    strided (:func:`_rows`)."""
+    for t in (params,) + tensors:
+        if t.device.type != 'cuda' or not (
+                _rows(t) if t is params else t.is_contiguous()):
             raise ValueError('The spline kernels take contiguous CUDA '
                              f'tensors, got one on {t.device}.')
 
 
+def _rows(params):
+    """Whether the kernels read ``params`` in place: features contiguous,
+    rows at any stride."""
+    return params.ndim == 2 and params.stride(1) == 1
+
+
+def _count(direction, kind):
+    name = f'{direction}_{kind}'
+    setattr(LAUNCHES, direction, getattr(LAUNCHES, direction) + 1)
+    setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
+
+
 def launch_forward(x, params, x0, xf, y0, yf, n_bins, min_bin_size,
-                   min_slope):
+                   min_slope, kind='standard'):
     """Launch K1 on CUDA tensors; returns ``(y, log_dy_dx)``.
 
     Arguments as :func:`fused_spline`, which checks them; this launcher
     is the one place that counts K1's launches.
     """
-    _require_cuda(x, params, x0, xf, y0, yf)
-    kernels = _kernels()
-    B, F = x.shape
+    _require_cuda(params, x, x0, xf, y0, yf)
     y = torch.empty_like(x)
     dl = torch.empty_like(x)
     consts = _constants(x.device, x.dtype, min_bin_size, min_slope)
-    with torch.cuda.device(x.device):
-        kernels['forward'][_grid(B, F)](
-            x, params, x0, xf, y0, yf, consts, y, dl, B, F, K=n_bins,
-            BLOCK_B=BLOCK_B, BLOCK_F=BLOCK_F, num_warps=NUM_WARPS)
-    LAUNCHES.forward += 1
+    _forward_launch(x, params, (x0, xf, y0, yf), consts, y, dl, n_bins, kind)
+    _count('forward', kind)
     return y, dl
 
 
+def _forward_launch(x, params, bounds, consts, y, dl, n_bins,
+                    kind='standard'):
+    """K1 into ``y`` and ``dl``; returns Triton's launch handle. Not
+    counted: :func:`launch_forward` is K1's launcher."""
+    B, F = x.shape
+    with torch.cuda.device(x.device):
+        return _kernels()['forward'][_grid(B, F)](
+            x, params, *bounds, consts, y, dl, B, F, params.stride(0),
+            K=n_bins, BLOCK_B=BLOCK_B, BLOCK_F=BLOCK_F, num_warps=NUM_WARPS,
+            **_kind_constexprs(kind, n_bins))
+
+
 def launch_backward(x, params, x0, xf, y0, yf, gy, gl, n_bins,
-                    min_bin_size, min_slope):
+                    min_bin_size, min_slope, kind='standard'):
     """Launch K2 on CUDA tensors; returns ``(grad_x, grad_params)`` for
-    the cotangents ``gy`` and ``gl`` of ``y`` and ``log_dy_dx``.
+    the cotangents ``gy`` and ``gl`` of ``y`` and ``log_dy_dx``;
+    ``grad_params`` is contiguous.
 
     Arguments as :func:`fused_spline`; this launcher is the one place that
     counts K2's launches.
     """
-    _require_cuda(x, params, x0, xf, y0, yf, gy, gl)
+    _require_cuda(params, x, x0, xf, y0, yf, gy, gl)
     if gy.shape != x.shape or gl.shape != x.shape:
         raise ValueError(f'Cotangents must have shape {tuple(x.shape)}.')
     gx = torch.empty_like(x)
-    gp = torch.empty_like(params)
+    gp = params.new_empty(params.shape)
     consts = _constants(x.device, x.dtype, min_bin_size, min_slope)
     _backward_launch(x, params, (x0, xf, y0, yf), consts, gy, gl, gx, gp,
-                     n_bins, BACKWARD_LAYOUT)
-    LAUNCHES.backward += 1
+                     n_bins, BACKWARD_LAYOUT, kind)
+    _count('backward', kind)
     return gx, gp
 
 
 def _backward_launch(x, params, bounds, consts, gy, gl, gx, gp, n_bins,
-                     layout):
-    """K2 into ``gx`` and ``gp`` with the tile ``layout`` (``BLOCK_B``,
-    ``BLOCK_F``, ``num_warps``); returns Triton's launch handle. Not
-    counted: :func:`launch_backward` is K2's launcher."""
+                     layout, kind='standard', kernel=None):
+    """K2 (or ``kernel``, a build of its source) into ``gx`` and ``gp``
+    with the tile ``layout`` (``BLOCK_B``, ``BLOCK_F``, ``num_warps``);
+    returns Triton's launch handle. Not counted: :func:`launch_backward`
+    is K2's launcher."""
     B, F = x.shape
     grid = _grid(B, F, layout['BLOCK_B'], layout['BLOCK_F'])
+    kernel = _kernels()['backward'] if kernel is None else kernel
     with torch.cuda.device(x.device):
-        return _kernels()['backward'][grid](
-            x, params, *bounds, consts, gy, gl, gx, gp, B, F, K=n_bins,
-            KP=_padded_bins(n_bins), **layout)
+        return kernel[grid](
+            x, params, *bounds, consts, gy, gl, gx, gp, B, F,
+            params.stride(0), K=n_bins, KP=_padded_bins(n_bins), **layout,
+            **_kind_constexprs(kind, n_bins))
 
 
 class _FusedSpline(torch.autograd.Function):
@@ -563,9 +750,10 @@ class _FusedSpline(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(x, params, x0, xf, y0, yf, n_bins, min_bin_size, min_slope):
+    def forward(x, params, x0, xf, y0, yf, n_bins, min_bin_size, min_slope,
+                kind='standard'):
         return launch_forward(x, params, x0, xf, y0, yf, n_bins,
-                              min_bin_size, min_slope)
+                              min_bin_size, min_slope, kind)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -577,7 +765,7 @@ class _FusedSpline(torch.autograd.Function):
     def backward(ctx, gy, gl):
         gx, gp = _SplineBackward.apply(*ctx.saved_tensors, gy, gl,
                                        *ctx.config)
-        return gx, gp, None, None, None, None, None, None, None
+        return (gx, gp) + (None,) * (4 + len(ctx.config))
 
     @staticmethod
     def vmap(info, in_dims, x, params, x0, xf, y0, yf, *config):
@@ -600,10 +788,10 @@ class _SplineBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(x, params, x0, xf, y0, yf, gy, gl, n_bins, min_bin_size,
-                min_slope):
+                min_slope, kind='standard'):
         return launch_backward(x, params, x0, xf, y0, yf, gy.contiguous(),
                                gl.contiguous(), n_bins, min_bin_size,
-                               min_slope)
+                               min_slope, kind)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -635,12 +823,16 @@ def _shared_bounds(bound_dims):
 
 
 def _check_offsets(params):
-    if params.numel() >= 2 ** 31:
+    B, P = params.shape
+    if max(B * P, (B - 1) * params.stride(0) + P) >= 2 ** 31:
         raise ValueError('params is too large for the kernels\' 32-bit '
                          'offsets.')
 
 
-def _check(x, params, bounds, n_bins):
+def _check(x, params, bounds, n_bins, kind='standard'):
+    if kind not in KINDS:
+        raise ValueError(f'kind must be one of {tuple(KINDS)}, got '
+                         f'{kind!r}.')
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'fused_spline takes float32 or float64, not '
                         f'{x.dtype}.')
@@ -648,10 +840,11 @@ def _check(x, params, bounds, n_bins):
         raise ValueError(f'x must be a non-empty (batch, n_features) '
                          f'tensor, got shape {tuple(x.shape)}.')
     B, F = x.shape
-    if tuple(params.shape) != (B, (3 * n_bins + 1) * F):
+    P = n_parameters(kind, n_bins) * F
+    if tuple(params.shape) != (B, P):
         raise ValueError(
-            f'params must have shape {(B, (3 * n_bins + 1) * F)} for '
-            f'n_bins={n_bins}, got {tuple(params.shape)}.')
+            f'params must have shape {(B, P)} for n_bins={n_bins} and '
+            f'kind={kind!r}, got {tuple(params.shape)}.')
     _check_offsets(params)
     for name, t in (('params', params),) + tuple(bounds.items()):
         if t.dtype != x.dtype or t.device != x.device:
@@ -662,13 +855,17 @@ def _check(x, params, bounds, n_bins):
         if tuple(t.shape) != (F,):
             raise ValueError(f'{name} must have shape ({F},), got '
                              f'{tuple(t.shape)}.')
-    for name, t in (('x', x), ('params', params)) + tuple(bounds.items()):
+    for name, t in (('x', x),) + tuple(bounds.items()):
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous.')
+    if not _rows(params):
+        raise ValueError('params must be contiguous along its features '
+                         '(its rows may be strided).')
 
 
 def fused_spline(x, params, x0, xf, y0, yf, n_bins: int,
-                 min_bin_size: float = 1e-4, min_slope: float = 1e-4):
+                 min_bin_size: float = 1e-4, min_slope: float = 1e-4,
+                 kind: str = 'standard'):
     """Fused rational-quadratic spline with linear tails (K1, K2).
 
     Differentiable with respect to ``x`` and ``params``. On a CUDA tensor it
@@ -680,27 +877,34 @@ def fused_spline(x, params, x0, xf, y0, yf, n_bins: int,
     Parameters
     ----------
     x : torch.Tensor, shape (batch, n_features)
-    params : torch.Tensor, shape (batch, (3K+1) * n_features)
+    params : torch.Tensor, shape (batch, P * n_features)
         Raw conditioner outputs, feature-contiguous per parameter (index
-        ``p * n_features + f``): K width logits, K height logits, K+1
-        slope pre-activations.
+        ``p * n_features + f``): K width logits, K height logits, the
+        kind's free slope pre-activations, then its domain scale's log or
+        its shift (P per feature: :func:`n_parameters`). The rows may be
+        strided (a slice of a wider tensor's columns): the kernels read
+        them in place.
     x0, xf, y0, yf : torch.Tensor, shape (n_features,)
         Per-feature domain bounds.
     n_bins : int
         Number of bins K.
     min_bin_size, min_slope : float
         Floors applied after normalization.
+    kind : str
+        The spline configuration, a key of :data:`KINDS`: ``standard``,
+        ``identity_upper``, ``circular`` or ``circular_identity``. A
+        circular kind needs ``y0 == x0`` and ``yf == xf``.
 
     Returns
     -------
     y, log_dy_dx : torch.Tensor, shape (batch, n_features)
     """
-    _check(x, params, dict(x0=x0, xf=xf, y0=y0, yf=yf), n_bins)
+    _check(x, params, dict(x0=x0, xf=xf, y0=y0, yf=yf), n_bins, kind)
     if x.device.type == 'cpu':
         return fused_spline_reference(x, params, x0, xf, y0, yf, n_bins,
-                                      min_bin_size, min_slope)
+                                      min_bin_size, min_slope, kind)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_spline runs on cuda or cpu tensors, not '
                          f'{x.device}.')
     return _FusedSpline.apply(x, params, x0, xf, y0, yf, n_bins,
-                              float(min_bin_size), float(min_slope))
+                              float(min_bin_size), float(min_slope), kind)

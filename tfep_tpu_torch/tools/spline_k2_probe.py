@@ -199,8 +199,11 @@ def run_backward(fs, x, params, bounds, gy, gl, n_bins, layout=None):
     """Launch ``fs``'s K2 once; returns Triton's handle (registers, spills,
     compiled code), ``grad_x`` and ``grad_params``. ``layout``: a tile of
     :func:`parse_layout`, where ``aligned`` compiles K2 with B and F
-    specialised (16-byte accesses where F allows). Sources before the
-    one-pass K2 had one tile for both kernels and no layout argument."""
+    specialised (16-byte accesses where F allows), launched through
+    ``fs._backward_launch(kernel=...)``: an older source without that
+    argument is probed aligned by its own checkout's probe. Sources before
+    the one-pass K2 had one tile for both kernels and no layout
+    argument."""
     consts = fs._constants(x.device, x.dtype, 1e-4, 1e-4)
     gx, gp = torch.empty_like(x), torch.empty_like(params)
     B, F = x.shape
@@ -216,12 +219,8 @@ def run_backward(fs, x, params, bounds, gy, gl, n_bins, layout=None):
     if fs not in _ALIGNED:
         import triton
         _ALIGNED[fs] = triton.jit(fs._kernels()['backward'].fn)
-    grid = fs._grid(B, F, layout['BLOCK_B'], layout['BLOCK_F'])
-    with torch.cuda.device(x.device):
-        handle = _ALIGNED[fs][grid](
-            x, params, *bounds, consts, gy, gl, gx, gp, B, F, K=n_bins,
-            KP=fs._padded_bins(n_bins), **layout)
-    return handle, gx, gp
+    return (fs._backward_launch(x, params, bounds, consts, gy, gl, gx, gp,
+                                n_bins, layout, kernel=_ALIGNED[fs]), gx, gp)
 
 
 def default_layout(fs) -> dict:
